@@ -1,14 +1,14 @@
-"""gcm_tpu — a TPU-native grid-characteristic method (GCM) framework.
+"""gcm_tpu — a JAX grid-characteristic method (GCM) framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 C++ framework ``AlexanderKazakov/gcm`` (see SURVEY.md; the reference mount was
 empty this round, so the contract is SURVEY.md §0 + BASELINE.json configs,
 anchored by the NumPy oracle in ``gcm_tpu.oracle``).
 
-Layers (bottom → top), mirroring SURVEY.md §1 but TPU-first:
+Layers (bottom → top), mirroring SURVEY.md §1:
 
 - ``ops``       : interpolation stencils and the fused per-axis stage ops
-                  (jnp reference path + Pallas kernels).
+                  (jnp reference path + the one-pass CUDA step kernel).
 - ``models``    : rheology models (acoustic, elastic) — closed-form
                   characteristic decompositions as declarative specs.
 - ``materials`` : isotropic/orthotropic material parameters, per-node fields.

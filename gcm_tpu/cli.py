@@ -1,6 +1,6 @@
 """Command-line launcher: ``python -m gcm_tpu <command> ...``.
 
-TPU-native counterpart of the reference's launcher ``main`` (SURVEY.md §2
+Counterpart of the reference's launcher ``main`` (SURVEY.md §2
 component 16): pick a predefined scenario by name, build the engine, run,
 write artifacts.
 
@@ -8,7 +8,7 @@ Commands:
   run <scenario> [--n N] [--nsteps K] [--outdir DIR] [--snapshot-every S]
                  [--cpu] [--checkpoint-every C] [--resume]
   list
-  bench [--shape X,Y,Z] [--path jnp|pallas]
+  bench [--n N] [--nsteps K]
 """
 
 from __future__ import annotations
@@ -16,6 +16,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+from gcm_tpu.task import KERNELS
 
 
 def _build_parser():
@@ -34,34 +37,22 @@ def _build_parser():
     r.add_argument("--cpu", action="store_true", help="force the CPU backend")
     r.add_argument("--profile", action="store_true",
                    help="capture a jax.profiler trace into <outdir>/trace")
-    r.add_argument("--kernel", default=None,
-                   choices=["auto", "jnp", "pallas", "pallas_fused",
-                            "pallas_simplex"],
-                   help="compute path (default: task's, usually 'auto' = "
-                        "fused Pallas on TPU, jnp elsewhere)")
+    r.add_argument("--kernel", default=None, choices=list(KERNELS),
+                   help="compute path (default: the task's, 'auto' = the "
+                        "one-pass Hopper step kernel on a GPU when the "
+                        "task qualifies, jnp otherwise)")
     r.add_argument("--mesh", default=None, metavar="NX[,NY]",
                    help="distribute over a device mesh of this shape "
-                        "(shard_map fused kernel when the task qualifies, "
-                        "per-sweep pallas/GSPMD otherwise)")
+                        "(shard_map halo exchange)")
     r.add_argument("--canonical-layout", action="store_true",
-                   default=None,
-                   help="store state in a permuted layout with a "
-                        "128-aligned lane dim, unlocking the fused kernel "
-                        "for otherwise-ineligible shapes (changes the "
-                        "splitting axis order; see Task.canonical_layout). "
-                        "Default: ON for the shipped multi-body contact "
-                        "scenarios (their physics ordering is unpinned; "
-                        "measured 2.4-7x faster contact steps), OFF "
-                        "elsewhere")
-    r.add_argument("--no-canonical-layout", dest="canonical_layout",
-                   action="store_false", help="force task layout")
+                   help="store state in a permuted layout (changes the "
+                        "splitting axis order; see Task.canonical_layout)")
 
     sub.add_parser("list", help="list available scenarios")
 
-    b = sub.add_parser("bench", help="single-chip step benchmark")
-    b.add_argument("--shape", default="256,256,128")
-    b.add_argument("--path", default="best",
-                   choices=["jnp", "pallas", "fused", "best"])
+    b = sub.add_parser("bench", help="engine throughput per path (bench.py)")
+    b.add_argument("--n", type=int, default=256)
+    b.add_argument("--nsteps", type=int, default=20)
     return p
 
 
@@ -87,16 +78,16 @@ def main(argv=None) -> int:
             sys.path.insert(0, root)
         import bench
 
-        shape = tuple(int(x) for x in args.shape.split(","))
-        bench.main(shape=shape,
-                   only=None if args.path == "best" else args.path)
-        return 0
+        return bench.main(n=args.n, nsteps=args.nsteps)
 
     # run
-    if args.cpu:
-        import jax
+    import jax
 
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from gcm_tpu.utils.backend import setup_compile_cache
+
+    setup_compile_cache()
 
     import dataclasses
 
@@ -159,6 +150,7 @@ def main(argv=None) -> int:
         "nsteps": res.nsteps,
         "dt": res.dt,
         "t_end": res.t,
+        "kernel": res.kernel,
         "wall_seconds": round(res.wall_seconds, 3),
         "points_per_second": round(res.points_per_second, 1),
         "outdir": args.outdir,
@@ -197,12 +189,6 @@ def _run_contact(args, kw) -> int:
 
         bodies = {k: _dc.replace(t, kernel=args.kernel)
                   for k, t in bodies.items()}
-    # shipped contact scenarios default to the canonical layout (VERDICT
-    # r4 weak #5): their splitting order is unpinned and the permuted
-    # layout measured 2.4-7x faster; --no-canonical-layout forces task
-    # layout
-    canon = (args.canonical_layout
-             if args.canonical_layout is not None else True)
     mesh = None
     if args.mesh:
         # --mesh used to be silently ignored for contact scenarios
@@ -215,8 +201,8 @@ def _run_contact(args, kw) -> int:
         ndev = int(np.prod(mshape))
         mesh = domain_mesh(3, devices=_jax.devices()[:ndev],
                            shape=mshape if len(mshape) > 1 else None)
-    eng = MultiBodyEngine(bodies, contacts, canonical_layout=canon,
-                          mesh=mesh)
+    eng = MultiBodyEngine(bodies, contacts,
+                          canonical_layout=args.canonical_layout, mesh=mesh)
     import os
 
     ckdir = os.path.join(args.outdir, "checkpoints")
@@ -327,13 +313,7 @@ def _run_simplex(args, kw) -> int:
             obj = dataclasses.replace(
                 obj, snapshots=SnapshotSpec(every=args.snapshot_every))
         if args.kernel is not None:
-            # --kernel used to be silently ignored on simplex scenarios
-            # (code-review r5); "pallas"/"pallas_fused" have no simplex
-            # meaning — map them to the fused simplex kernel
-            k = args.kernel
-            if k in ("pallas", "pallas_fused"):
-                k = "pallas_simplex"
-            obj = dataclasses.replace(obj, kernel=k)
+            obj = dataclasses.replace(obj, kernel=args.kernel)
         if args.mesh:
             import sys as _sys
 

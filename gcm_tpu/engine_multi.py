@@ -1,6 +1,6 @@
 """Multi-body engine: several Tasks coupled by contact interfaces.
 
-TPU-native counterpart of the reference Engine's multi-mesh mode
+Counterpart of the reference Engine's multi-mesh mode
 (SURVEY.md §3.1): all bodies share one jitted step (a dict pytree), the
 contact/fracture state (per-interface bond masks) is part of the scan carry,
 so fracture evolution runs entirely on device.
@@ -20,7 +20,6 @@ import numpy as np
 from gcm_tpu.engine import RunResult
 from gcm_tpu.materials import MaterialFields
 from gcm_tpu.models.spec import get_model
-from gcm_tpu.utils.backend import on_tpu
 from gcm_tpu.solver.contact import ContactSpec
 from gcm_tpu.solver.multi import step_multi
 from gcm_tpu.task import Task
@@ -45,12 +44,12 @@ class MultiBodyEngine:
     global CFL minimum over bodies (as in the reference's allreduce-min,
     SURVEY.md §3.1 — but static, computed once host-side).
 
-    Fast paths (round-1 verdict weak #4): bodies whose tasks set
-    ``kernel='pallas'``/``'pallas_fused'`` run each sweep through the
-    per-sweep Pallas kernel with borders and contacts applied as exact
-    post-sweep slab fixups; with ``mesh=`` the sweeps run under shard_map
-    with explicit halo exchange while the fixups stay GSPMD slab math.
-    The jnp kernel with ``mesh=`` is the plain GSPMD global program.
+    Paths: without a mesh, every sweep solves borders and contacts in
+    place (solver.multi.step_multi). With ``mesh=`` the sweeps run under
+    shard_map with explicit halo exchange (parallel.halo) and borders and
+    contacts become exact post-sweep slab fixups (step_multi_fast). The
+    opt-in canonical layout runs each body's whole step and then fixes the
+    contact face rows (step_multi_fused).
     """
 
     def __init__(self, bodies: Dict[str, Task], contacts: Sequence[ContactSpec],
@@ -62,15 +61,10 @@ class MultiBodyEngine:
         self.model = get_model(t0.model)
         self.order = t0.order
         self.symmetrize = t0.symmetrize_stages
-        from gcm_tpu.engine import resolve_kernel
-
-        self.kernel = resolve_kernel(t0.kernel, self.model.dim)
         self.mesh = mesh
         for t in bodies.values():
             if t.model != t0.model or t.order != t0.order:
                 raise ValueError("bodies must share model and order")
-            if t.kernel != t0.kernel:
-                raise ValueError("bodies must share the kernel choice")
 
         self.mats: Dict[str, MaterialFields] = {}
         self.us: Dict[str, jnp.ndarray] = {}
@@ -91,17 +85,15 @@ class MultiBodyEngine:
         self.dt = float(min(dts))
         self.nsteps = t0.time.steps_for(self.dt)
 
-        # Canonical permuted layout (round 4, OPT-IN): a contact
-        # interface on the TPU lane axis makes every face-slab fixup
-        # full-field traffic (nz=128 is ONE lane tile — BASELINE.md
-        # round-4 contact study), so when every contact shares one
-        # non-leading axis, the engine stores state with that axis FIRST
-        # and steps with the permuted model (models.spec.permuted_model).
+        # Canonical permuted layout (OPT-IN): when every contact shares one
+        # axis, the engine stores state with that axis FIRST and steps with
+        # the permuted model (models.spec.permuted_model), so the contact
+        # face-slab fixups are leading-axis slabs.
         # NOTE: the dimensional-splitting order becomes (ca, rest) and its
         # reverse — an equally valid second-order symmetrized pair, but a
         # numerically DIFFERENT splitting than the default (x,y,z)/(z,y,x)
         # — hence opt-in (canonical_layout=True). Verified exact against
-        # the jnp path run with the matching axis order
+        # the jnp step_multi run with the matching axis order
         # (tests/test_multibody_fast.py). Inputs/outputs stay in task
         # layout: state_dict, run results and snapshots unpermute at the
         # boundary.
@@ -112,11 +104,11 @@ class MultiBodyEngine:
         # the task-layout grids, BEFORE any canonical permutation: the
         # permuted axis would make faces_conform compare the wrong
         # transverse extents and build_interface_maps treat the wrong
-        # axis as the interface normal (code-review r5). Non-conforming
-        # interfaces also disqualify the canonical perm entirely (the
-        # fused composition can't serve them, and the jnp maps are built
-        # in task layout).
+        # axis as the interface normal. Non-conforming interfaces also
+        # disqualify the canonical perm entirely (the full-step composition
+        # can't serve them, and the in-stage maps are built in task layout).
         from gcm_tpu.solver.contact_nc import faces_conform as _conform
+        from gcm_tpu.solver.multi import fused_contacts_ok
 
         all_conforming = all(
             c.span is not None
@@ -125,68 +117,41 @@ class MultiBodyEngine:
             for c in self.contacts)
         perm = None
         remesh = None
-        if (self.kernel == "pallas_fused" and all_conforming
+        iso = all(isinstance(m, MaterialFields) for m in self.mats.values())
+        if (canonical_layout and all_conforming and iso
                 and self.model.dim == 3 and len(contact_axes) == 1):
             ca = next(iter(contact_axes))
-            hw_tpu = on_tpu(mesh)
-            iso = all(isinstance(m, MaterialFields)
-                      for m in self.mats.values())
+            rest = [d for d in range(3) if d != ca]
             if mesh is None:
-                perm = (ca,) + tuple(d for d in range(3) if d != ca)
-                lane_ok = all(
-                    (not hw_tpu) or t.grid.shape[perm[-1]] % 128 == 0
-                    for t in bodies.values())
-                if ca == 0 or not lane_ok or not iso:
-                    perm = None
+                if ca != 0:
+                    perm = (ca,) + tuple(rest)
             elif len(mesh.axis_names) == 1 and ca != 0:
-                # canonical UNDER a device mesh (VERDICT r4 weak #2): the
-                # contact axis LEADS (whole on every shard — fixups stay
-                # transpose-free thin slabs), the mesh's one axis shards
-                # the MIDDLE spatial axis (rebuilt as a ('sy',)-mesh so
-                # the fused spmd step's axis naming lines up), and the
-                # lane axis is, as always, unsharded
-                rest = [d for d in range(3) if d != ca]
+                # canonical UNDER a device mesh: the contact axis LEADS
+                # (whole on every shard — fixups stay thin slabs), the
+                # mesh's one axis shards the MIDDLE spatial axis (rebuilt
+                # as a ('sy',)-mesh so the halo step's axis naming lines
+                # up), and the last axis stays unsharded. The transverse
+                # storage order must stay TASK-ASCENDING (rest[0],
+                # rest[1]): ContactSpec lo/span entries map to the
+                # remaining storage dims in ascending order
+                # (contact.face_sub_index), and checkpointed fracture bond
+                # masks are saved in the permuted transverse layout.
                 nsh = int(mesh.devices.size)
-                # the transverse storage order must stay TASK-ASCENDING
-                # (rest[0], rest[1]): ContactSpec lo/span entries map to
-                # the remaining storage dims in ascending order
-                # (contact.face_sub_index), and checkpointed fracture
-                # bond masks are saved in the permuted transverse layout
-                # — an inverted order would slice the wrong span
-                # sub-rectangle and transpose resumed masks (code-review
-                # r5). So only rest[1] may be the lane axis; if it is
-                # lane-misaligned, fall back to the non-canonical path.
-                lane = rest[1]
-                mid = rest[0]
-                lane_aligned = all(
-                    (not hw_tpu) or t.grid.shape[lane] % 128 == 0
-                    for t in bodies.values())
-                if lane_aligned and iso:
-                    div_ok = all(t.grid.shape[mid] % nsh == 0
-                                 for t in bodies.values())
-                    if div_ok:
-                        perm = (ca, mid, lane)
-                        from jax.sharding import Mesh as _Mesh
+                if all(t.grid.shape[rest[0]] % nsh == 0
+                       for t in bodies.values()):
+                    perm = (ca,) + tuple(rest)
+                    from jax.sharding import Mesh as _Mesh
 
-                        remesh = _Mesh(
-                            np.asarray(mesh.devices).reshape(-1), ("sy",))
-            if perm is not None and not canonical_layout:
-                # steer users to the faster layout (VERDICT r4 weak #5):
-                # opt-in because the splitting order changes (an equally
-                # valid symmetrized pair, but a numerically different
-                # one). TPU backends only — the quoted v5e speedups
-                # don't apply elsewhere (code-review r5)
-                if hw_tpu:
-                    import logging
-
-                    logging.getLogger("gcm_tpu.perf").warning(
-                        "this contact setup qualifies for the canonical "
-                        "permuted layout (contact axis off the TPU lane "
-                        "dim) - measured 2.4-7x faster contact steps on "
-                        "v5e (BASELINE.md round 4); pass "
-                        "canonical_layout=True (CLI: --canonical-layout) "
-                        "to enable")
-                perm = None
+                    remesh = _Mesh(
+                        np.asarray(mesh.devices).reshape(-1), ("sy",))
+            if perm is not None:
+                pshapes = {k: tuple(t.grid.shape[p] for p in perm)
+                           for k, t in bodies.items()}
+                pcontacts = tuple(dataclasses.replace(c, axis=0)
+                                  for c in self.contacts)
+                if not fused_contacts_ok(self.model, pshapes, pcontacts,
+                                         self.order):
+                    perm = remesh = None
             if perm is not None:
                 if remesh is not None:
                     mesh = remesh
@@ -221,38 +186,28 @@ class MultiBodyEngine:
                 k: jax.tree.map(partial(jax.device_put, device=ms), v)
                 for k, v in self.mats.items()}
 
-        # fast-path raw sweeps (borders/contacts become post-fixups);
-        # the per-sweep halo path names the leading spatial axis 'sx', so
-        # a canonical+sharded ('sy',)-mesh skips it (the fused spmd
-        # composition serves that case; jnp GSPMD is the fallback)
+        # sharded per-sweep path: raw shard_map sweeps, borders/contacts as
+        # post-fixups (the halo stage names the leading spatial axis 'sx')
         self._raw_stage = None
-        if self.kernel in ("pallas", "pallas_fused") and (
-                mesh is None or "sx" in mesh.axis_names):
-            if mesh is None:
-                from gcm_tpu.ops.pallas_stage import pallas_stage
+        if (mesh is not None and self._perm is None
+                and "sx" in mesh.axis_names):
+            from gcm_tpu.parallel.halo import (
+                extend_mats_once, make_spmd_raw_stage)
 
-                def _raw(name, u, axis):
-                    return pallas_stage(
-                        self.model, u, self.mats[name], self.dt,
-                        self.hs[name], axis, self.order, None, cx=32)
-            else:
-                from gcm_tpu.parallel.halo import (
-                    extend_mats_once, make_spmd_raw_stage)
+            fns = {
+                name: make_spmd_raw_stage(
+                    self.model, mesh, self.dt, self.hs[name], self.order)
+                for name in names
+            }
+            # one-time per-axis material extension per body
+            prepared = {
+                name: extend_mats_once(self.mats[name], mesh,
+                                       self.model.dim, self.order)
+                for name in names
+            }
 
-                fns = {
-                    name: make_spmd_raw_stage(
-                        self.model, mesh, self.dt, self.hs[name], self.order)
-                    for name in names
-                }
-                # one-time per-axis material extension per body (r2 weak #5)
-                prepared = {
-                    name: extend_mats_once(self.mats[name], mesh,
-                                           self.model.dim, self.order)
-                    for name in names
-                }
-
-                def _raw(name, u, axis):
-                    return fns[name](u, prepared[name], axis)
+            def _raw(name, u, axis):
+                return fns[name](u, prepared[name], axis)
 
             self._raw_stage = _raw
 
@@ -276,117 +231,47 @@ class MultiBodyEngine:
         assert not (self._perm is not None and self.ncmaps), \
             "canonical layout must not engage with non-conforming contacts"
 
-        # fused full-step multi-body path (VERDICT r3 item 2): each body
-        # runs its whole step through the fused Pallas kernel — ONE HBM
-        # pass — and contacts become face-slab fixups (solver.multi.
-        # step_multi_fused).  Falls back to the per-sweep fast path when
-        # the contact topology or shapes disqualify.
-        self._fused_multi = None
-        from gcm_tpu.solver.multi import fused_contacts_ok
-
-        hw_tpu = on_tpu(self.mesh)
-        shapes = {k: self._pshape(k) for k in bodies}
-        shapes_ok = all(
-            ((not hw_tpu) or shapes[k][-1] % 128 == 0)
-            and (self.model.dim == 3 or shapes[k][0] % 8 == 0)
-            for k in bodies)
-        # SHARDED fused composition (VERDICT r3 item 2, multi-chip form):
-        # each body runs the fused spmd step (interior/ring shard_map
-        # kernels, overlapped halo slabs) and the contact fixups stay pure
-        # jnp — GSPMD partitions them — provided every contact axis is
-        # UNSHARDED (the lane axis 2 always is; axes 0/1 qualify when the
-        # mesh carries no 'sx'/'sy' — e.g. the canonical+sharded layout
-        # puts the contact axis first and shards only the middle axis).
-        nsx_m = mesh.shape.get("sx", 1) if mesh is not None else 1
-        nsy_m = mesh.shape.get("sy", 1) if mesh is not None else 1
-        unsharded = ({2} | ({0} if nsx_m == 1 else set())
-                     | ({1} if nsy_m == 1 else set()))
-        if (self.kernel == "pallas_fused" and mesh is not None
-                and self.model.dim == 3 and shapes_ok
-                and all(c.axis in unsharded for c in self.contacts)
-                and fused_contacts_ok(self.model, shapes, self.contacts,
-                                      self.order, getattr(self, "ncmaps",
-                                                          None))):
-            from gcm_tpu.parallel.fused_spmd import (
-                extended_mstack, make_fused_spmd_step)
-
+        # full-step composition of the canonical layout: each body runs its
+        # whole step (non-contact borders in place, raw edge clamp at
+        # full-contact faces), then the contact face rows are recomputed
+        # (solver.multi.step_multi_fused)
+        self._full_step = None
+        self._mexts = None
+        if self._perm is not None:
             full_faces = set()
             for c in self.contacts:
                 if c.span is None:
                     full_faces.add((c.body_a, c.axis, 1))
                     full_faces.add((c.body_b, c.axis, 0))
-            self._mstacks = {
-                name: extended_mstack(self.model, self.mats[name], mesh,
-                                      self.order, dtype=dtype)
-                for name in bodies}
-            spmd_steps = {
-                name: make_fused_spmd_step(
-                    self.model, mesh, self.dt, self.hs[name], self.order,
-                    {f: b for f, b in self.borders[name].items()
-                     if (name,) + f not in full_faces})
-                for name, task in bodies.items()}
+            body_bcs = {
+                name: {f: b for f, b in self.borders[name].items()
+                       if (name,) + f not in full_faces}
+                for name in names}
+            if mesh is None:
+                from gcm_tpu.solver.gcm import step as jnp_step
 
-            def _fused_body_spmd(name, u, axes, mext=None):
-                me = mext if mext is not None else self._mstacks[name]
-                return spmd_steps[name](u, me, axes)
+                def _full(name, u, axes, mat, mext):
+                    return jnp_step(self.model, u, mat, self.dt,
+                                    self.hs[name], self.order,
+                                    body_bcs[name], axes)
+            else:
+                from gcm_tpu.parallel.halo import (
+                    extend_mats_once, make_spmd_step)
 
-            self._fused_multi = _fused_body_spmd
-        elif (self.kernel == "pallas_fused" and mesh is None
-                and self.model.dim in (2, 3) and shapes_ok
-                and fused_contacts_ok(self.model, shapes, self.contacts,
-                                      self.order, getattr(self, "ncmaps",
-                                                          None))):
-            from gcm_tpu.ops.pallas_fused import (
-                fused_step, fused_step_2d, stack_mats, stack_mats_ortho)
+                spmd_steps = {
+                    name: make_spmd_step(self.model, mesh, self.dt,
+                                         self.hs[name], self.order,
+                                         body_bcs[name])
+                    for name in names}
+                self._mexts = {
+                    name: extend_mats_once(self.mats[name], mesh,
+                                           self.model.dim, self.order)
+                    for name in names}
 
-            full_faces = set()
-            for c in self.contacts:
-                if c.span is None:
-                    full_faces.add((c.body_a, c.axis, 1))
-                    full_faces.add((c.body_b, c.axis, 0))
-            mstacks = {}
-            kernel_bcs = {}
-            for name, task in bodies.items():
-                mat = self.mats[name]
-                ms = (stack_mats(self.model, mat, compact=True)
-                      if isinstance(mat, MaterialFields)
-                      else stack_mats_ortho(self.model, mat))
-                if task.mat_dtype == "bf16":
-                    ms = ms.astype(jnp.bfloat16)
-                mstacks[name] = ms
-                kernel_bcs[name] = {
-                    f: b for f, b in self.borders[name].items()
-                    if (name,) + f not in full_faces}
-            ffn = fused_step if self.model.dim == 3 else fused_step_2d
-            if self._perm is not None:
-                # permuted bodies put a 256-lane dim under the windowed
-                # kernel's r-row y-halo DMAs, which crashes the Mosaic
-                # compile on hardware; the slab kernel's contiguous
-                # x-segments handle any lane extent (~10% off the windowed
-                # rate — BASELINE.md r2 slab study)
-                from gcm_tpu.ops.pallas_fused import fused_step_slab
+                def _full(name, u, axes, mat, mext):
+                    return spmd_steps[name](u, mext, axes)
 
-                def ffn(model, u, ms, dt, hs, order, bcs, axes, bx=4,
-                        by=None):
-                    return fused_step_slab(model, u, ms, dt, hs, order,
-                                           bcs, axes, bx=4)
-            #: fused-kernel tile size, read dynamically: smaller tiles cost
-            #: ~10% throughput but shrink the Mosaic payload ~4x (relevant
-            #: where a compile service caps program size, BASELINE.md r4)
-            self._fused_tile = (32, 64)
-
-            self._mstacks = mstacks
-
-            def _fused_body(name, u, axes, mstack=None):
-                kw = {"bx": self._fused_tile[0]}
-                if self.model.dim == 3:
-                    kw["by"] = self._fused_tile[1]
-                ms = mstack if mstack is not None else mstacks[name]
-                return ffn(self.model, u, ms, self.dt,
-                           self.hs[name], self.order, kernel_bcs[name],
-                           axes, **kw)
-
-            self._fused_multi = _fused_body
+            self._full_step = _full
 
         # bond masks for fracture-enabled contacts (overlap slab shape;
         # non-conforming contacts carry per-side masks)
@@ -528,11 +413,8 @@ class MultiBodyEngine:
 
     def _step_params(self):
         """Material state threaded through jit boundaries as ARGUMENTS
-        (closure-captured stacks serialize into the program: two 256³
-        bodies add ~270 MB of HLO proto, tripping size-capped compile
-        services — measured round 4)."""
-        return {"mstacks": getattr(self, "_mstacks", None),
-                "mats": self.mats}
+        (closure-captured arrays serialize into the program)."""
+        return {"mats": self.mats, "mexts": self._mexts}
 
     def _one_step(self, us, bonded, auxs, n_amp, parity: int, params=None):
         if params is None:
@@ -540,17 +422,20 @@ class MultiBodyEngine:
         axes = tuple(range(self.model.dim))
         if self.symmetrize and parity == 1:
             axes = axes[::-1]
-        if self._fused_multi is not None:
+        if self._full_step is not None:
             from gcm_tpu.solver.multi import step_multi_fused
 
-            ms = params["mstacks"]
+            mats, mexts = params["mats"], params["mexts"]
 
-            def fb(name, u, axes_):
-                return self._fused_multi(name, u, axes_, ms[name])
+            def body(name, u, axes_):
+                return self._full_step(
+                    name, u, axes_, mats[name],
+                    None if mexts is None else mexts[name])
 
             us, bonded = step_multi_fused(
-                self.model, us, params["mats"], self.dt, self.hs,
-                self.order, self.borders, self.contacts, bonded, fb, axes,
+                self.model, us, mats, self.dt, self.hs,
+                self.order, self.borders, self.contacts, bonded,
+                body, axes,
             )
         elif self._raw_stage is not None:
             from gcm_tpu.solver.multi import step_multi_fast

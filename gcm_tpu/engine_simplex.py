@@ -24,12 +24,11 @@ from gcm_tpu.materials import (
     OrthotropicMaterialFields,
 )
 from gcm_tpu.models.spec import get_model
-from gcm_tpu.utils.backend import on_tpu
 from gcm_tpu.solver.simplex_gcm import simplex_step
 
 
 def _points_fingerprint(grid) -> "np.ndarray | None":
-    """md5 (as a [16] uint8 array — orbax rejects str leaves) of the node
+    """md5 (as a [16] uint8 array — checkpoint leaves are arrays) of the node
     coordinates in storage order — changes whenever the node NUMBERING
     changes (locality reorder, different mesh), which is exactly what
     makes a per-node checkpoint unresumable."""
@@ -135,30 +134,9 @@ class SimplexEngine:
         #: {table_key: bool} — which sweeps run the compressed-stencil
         #: fast path vs the gather fallback (surfaced in run results)
         self.stencil_compressed = _stencil_regime(self.tables, name)
-        # fused compressed-stencil Pallas sweeps (VERDICT r4 next #1):
-        # every weighted roll of a stage in ONE VMEM pass instead of |D|
-        # full-array XLA rolls.  auto = on TPU backends when the plan is
-        # buildable (all tables compressed, isotropic, no correctors —
-        # correctors would need the padded aux plumbing).
-        self._splan = None
-        self.kernel = kernel
-        # auto skips tiny meshes: the padded [R, 128] layout rounds R up
-        # to a 64-multiple, so meshes far below ~64*128 nodes pay a large
-        # zero-weight pad tax (code-review r5); forcing kernel=
-        # "pallas_simplex" overrides
-        if (kernel in ("auto", "pallas_simplex") and not correctors
-                and (kernel == "pallas_simplex"
-                     or (on_tpu()
-                         and grid.npoints >= 4096))):
-            from gcm_tpu.ops.pallas_simplex import build_fused_simplex_plan
+        from gcm_tpu.task import check_kernel
 
-            self._splan = build_fused_simplex_plan(
-                self.model, self.mat, self.tables, self.border_kind,
-                dtype=dtype)
-        if kernel == "pallas_simplex" and self._splan is None:
-            raise ValueError(
-                "kernel='pallas_simplex' needs fully compressed stencil "
-                "tables, isotropic media and no correctors")
+        self.kernel = check_kernel(kernel)
         self.u = jnp.asarray(
             u0 if u0 is not None
             else np.zeros((self.model.ncomp, grid.npoints)),
@@ -279,51 +257,37 @@ class SimplexEngine:
         amps_all = jnp.asarray(amps_np, dtype=self.dtype)
         det = self._det_idx
 
-        plan = self._splan
-        if plan is not None:
-            from gcm_tpu.ops.pallas_simplex import fused_simplex_step
+        def half_step(u, aux, amp, parity):
+            axes = axes_fwd if parity == 0 else axes_fwd[::-1]
+            u = simplex_step(model, u, mat, tables, border, axes)
+            for k, (node, comp, _) in enumerate(self._srcs):
+                u = u.at[comp, node].add(amp[k])
+            for corr in self.correctors:
+                u, aux = corr(model, u, aux, self.dt)
+            tr = (u[:, det].T if det is not None
+                  else jnp.zeros((0, model.ncomp), u.dtype))
+            return u, aux, tr
 
-            L = plan.L
-            det_rc = (None if det is None else (det // L, det % L))
+        if getattr(self, "_scan_pairs", None) is None:
+            # built once per engine: a fresh jax.jit wrapper per run()
+            # would retrace and recompile the whole step program
+            @partial(jax.jit, donate_argnums=0)
+            def scan_pairs(carry, amps_pairs):
+                # symmetrized stage order (second order in time, SURVEY
+                # §0.3 — measured in tests/test_temporal_order.py), same
+                # as Engine
+                def body(carry, amp2):
+                    u, aux = carry
+                    u, aux, t0_ = half_step(u, aux, amp2[0], 0)
+                    u, aux, t1_ = half_step(u, aux, amp2[1], 1)
+                    return (u, aux), jnp.stack([t0_, t1_])
 
-            def half_step(u, aux, amp, parity):
-                # u is the PADDED [C, R, L] state for the whole scan;
-                # sources/detectors address nodes by (row, lane)
-                axes = axes_fwd if parity == 0 else axes_fwd[::-1]
-                u = fused_simplex_step(plan, u, axes)
-                for k, (node, comp, _) in enumerate(self._srcs):
-                    u = u.at[comp, node // L, node % L].add(amp[k])
-                tr = (u[:, det_rc[0], det_rc[1]].T if det is not None
-                      else jnp.zeros((0, model.ncomp), u.dtype))
-                return u, aux, tr
-        else:
-            def half_step(u, aux, amp, parity):
-                axes = axes_fwd if parity == 0 else axes_fwd[::-1]
-                u = simplex_step(model, u, mat, tables, border, axes)
-                for k, (node, comp, _) in enumerate(self._srcs):
-                    u = u.at[comp, node].add(amp[k])
-                for corr in self.correctors:
-                    u, aux = corr(model, u, aux, self.dt)
-                tr = (u[:, det].T if det is not None
-                      else jnp.zeros((0, model.ncomp), u.dtype))
-                return u, aux, tr
+                return jax.lax.scan(body, carry, amps_pairs)
 
-        @partial(jax.jit, donate_argnums=0)
-        def scan_pairs(carry, amps_pairs):
-            # symmetrized stage order (second order in time, SURVEY §0.3 —
-            # measured in tests/test_temporal_order.py), same as Engine
-            def body(carry, amp2):
-                u, aux = carry
-                u, aux, t0_ = half_step(u, aux, amp2[0], 0)
-                u, aux, t1_ = half_step(u, aux, amp2[1], 1)
-                return (u, aux), jnp.stack([t0_, t1_])
-
-            return jax.lax.scan(body, carry, amps_pairs)
+            self._scan_pairs = scan_pairs
+        scan_pairs = self._scan_pairs
 
         u, aux = self.u, self.aux
-        if plan is not None:
-            u = plan.pad(u)      # padded [C, R, L] for the whole scan
-        unpad = (lambda x: x) if plan is None else plan.unpad
         if start == 0:
             self._trace_chunks = []
         traces = self._trace_chunks = list(self._trace_chunks)
@@ -361,15 +325,15 @@ class SimplexEngine:
                 traces.append(np.asarray(tr).reshape(-1, npts_det,
                                                      model.ncomp))
             done += take * 2
-            self.u, self.aux, self._done_step = unpad(u), aux, done
+            self.u, self.aux, self._done_step = u, aux, done
             if snapshot_cb is not None:
-                snapshot_cb(done, np.asarray(jax.device_get(unpad(u))))
+                snapshot_cb(done, np.asarray(jax.device_get(u)))
         while done < nsteps:           # odd forward tail
             single(done)
             done += 1
         u.block_until_ready()
         wall = _time.perf_counter() - t0
-        self.u, self.aux, self._done_step = unpad(u), aux, done
+        self.u, self.aux, self._done_step = u, aux, done
         trace_arr = None
         if det is not None and traces:
             trace_arr = np.concatenate(
@@ -377,7 +341,7 @@ class SimplexEngine:
                  for t in traces],
                 axis=0)
         return SimplexRunResult(
-            u=np.asarray(jax.device_get(unpad(u))),
+            u=np.asarray(jax.device_get(u)),
             nsteps=nsteps,
             dt=self.dt,
             wall_seconds=wall,
@@ -392,7 +356,7 @@ class SimplexEngine:
     def run_with_outputs(self, outdir: str,
                          checkpoint_every: int = 0) -> SimplexRunResult:
         """Run with artifact outputs: cadenced .vtu snapshots, seismograms,
-        optional orbax checkpoints — the unstructured mirror of
+        optional checkpoints — the unstructured mirror of
         Engine.run_with_outputs."""
         import os
 
@@ -543,31 +507,9 @@ class SimplexMultiEngine:
                 else np.zeros((self.model.ncomp, b.grid.npoints)),
                 dtype=dtype)
 
-        # fused compressed-stencil sweeps + post-fixup contacts (VERDICT
-        # r4 next #8): each body's sweep is ONE Pallas VMEM pass over a
-        # padded flat [C, R*L] state (node n sits at flat index n, so the
-        # contact gather/scatter fixups are untouched); all bodies must
-        # qualify so _one_step stays uniform.  auto = on TPU backends.
-        self._splans = None
-        self.kernel = kernel
-        if (kernel in ("auto", "pallas_simplex"))\
-                and all(not b.correctors for b in bodies.values()) \
-                and (kernel == "pallas_simplex"
-                     or (on_tpu()
-                         and all(b.grid.npoints >= 4096
-                                 for b in bodies.values()))):
-            from gcm_tpu.ops.pallas_simplex import build_fused_simplex_plan
+        from gcm_tpu.task import check_kernel
 
-            plans = {name: build_fused_simplex_plan(
-                         self.model, self.mats[name], self.tables[name],
-                         self.borders[name], dtype=dtype)
-                     for name in bodies}
-            if all(p is not None for p in plans.values()):
-                self._splans = plans
-        if kernel == "pallas_simplex" and self._splans is None:
-            raise ValueError(
-                "kernel='pallas_simplex' needs fully compressed stencil "
-                "tables, isotropic media and no correctors on every body")
+        self.kernel = check_kernel(kernel)
 
         # node pairing + bond masks per contact; bodies whose hulls are NOT
         # collocated across the WHOLE interface (independently meshed,
@@ -661,35 +603,11 @@ class SimplexMultiEngine:
         self.start_step = self._done_step = int(np.asarray(state["step"]))
 
     def _sweep_one(self, name: str, u, axis: int):
-        """One sweep of one body: the fused Pallas pass over the padded
-        flat state when a plan exists, the jnp roll/gather sweep else."""
-        if self._splans is not None:
-            from gcm_tpu.ops.pallas_simplex import fused_simplex_sweep
-
-            plan = self._splans[name]
-            u3 = u.reshape(self.model.ncomp, plan.R, plan.L)
-            return fused_simplex_sweep(plan, u3, axis).reshape(
-                self.model.ncomp, plan.R * plan.L)
+        """One jnp roll/gather sweep of one body."""
         from gcm_tpu.solver.simplex_gcm import simplex_stage
 
         return simplex_stage(self.model, u, self.mats[name],
                              self.tables[name], axis, self.borders[name])
-
-    def _pad_us(self, us):
-        if self._splans is None:
-            return us
-        return {name: jnp.concatenate(
-                    [u, jnp.zeros((u.shape[0],
-                                   self._splans[name].R
-                                   * self._splans[name].L - u.shape[1]),
-                                  u.dtype)], axis=1)
-                for name, u in us.items()}
-
-    def _unpad_us(self, us):
-        if self._splans is None:
-            return us
-        return {name: u[:, :self._splans[name].N]
-                for name, u in us.items()}
 
     def _one_step(self, us, bonded, auxs, amp, parity: int):
         from gcm_tpu.solver.simplex_contact import apply_simplex_contact_post
@@ -760,24 +678,29 @@ class SimplexMultiEngine:
             if self._srcs else np.zeros((nsteps, 0)))
         amps_all = jnp.asarray(amps_np[start:], dtype=self.dtype)
 
-        @partial(jax.jit, donate_argnums=0)
-        def scan_all(carry, amps_pairs):
-            def body(carry, amp2):
-                us, bonded, auxs = carry
-                us, bonded, auxs = self._one_step(us, bonded, auxs,
-                                                  amp2[0], 0)
-                t0_ = self._detect(us)
-                us, bonded, auxs = self._one_step(us, bonded, auxs,
-                                                  amp2[1], 1)
-                t1_ = self._detect(us)
-                tr = {k: jnp.stack([t0_[k], t1_[k]]) for k in t0_} \
-                    if self._det_idx else {}
-                return (us, bonded, auxs), tr
+        if getattr(self, "_scan_all", None) is None:
+            # built once per engine (see SimplexEngine.run)
+            @partial(jax.jit, donate_argnums=0)
+            def scan_all(carry, amps_pairs):
+                def body(carry, amp2):
+                    us, bonded, auxs = carry
+                    us, bonded, auxs = self._one_step(us, bonded, auxs,
+                                                      amp2[0], 0)
+                    t0_ = self._detect(us)
+                    us, bonded, auxs = self._one_step(us, bonded, auxs,
+                                                      amp2[1], 1)
+                    t1_ = self._detect(us)
+                    tr = {k: jnp.stack([t0_[k], t1_[k]]) for k in t0_} \
+                        if self._det_idx else {}
+                    return (us, bonded, auxs), tr
 
-            return jax.lax.scan(body, carry, amps_pairs)
+                return jax.lax.scan(body, carry, amps_pairs)
+
+            self._scan_all = scan_all
+        scan_all = self._scan_all
 
         t0 = _time.perf_counter()
-        us, bonded, auxs = self._pad_us(self.us), self.bonded, self.auxs
+        us, bonded, auxs = self.us, self.bonded, self.auxs
 
         def _norm(tr):
             return {k: np.asarray(v).reshape(
@@ -819,13 +742,13 @@ class SimplexMultiEngine:
             if self._det_idx:
                 chunks_acc.append(_norm(tr))
             done_pairs += take
-            self.us = self._unpad_us(us)
+            self.us = us
             self.bonded, self.auxs = bonded, auxs
             self._done_step = start + nhead + 2 * done_pairs
             if snapshot_cb is not None:
                 snapshot_cb(self._done_step,
                             {k: np.asarray(jax.device_get(v))
-                             for k, v in self._unpad_us(us).items()})
+                             for k, v in us.items()})
         if (nrun - nhead) % 2:
             # un-paired forward tail step — run(3) executes 3 steps, same
             # convention as SimplexEngine/Engine (advisor r2)
@@ -835,7 +758,6 @@ class SimplexMultiEngine:
                 chunks_acc.append(_norm(self._detect(us)))
         jax.tree.map(lambda a: a.block_until_ready(), us)
         wall = _time.perf_counter() - t0
-        us = self._unpad_us(us)
         self.us, self.bonded, self.auxs = us, bonded, auxs
         self._done_step = nsteps
         npts = sum(b.grid.npoints for b in self.bodies.values())

@@ -1,11 +1,11 @@
 """Simplex (tri/tet) meshes with precomputed characteristic gather tables.
 
-TPU-native counterpart of the reference's CGAL-backed ``SimplexGrid`` +
+Counterpart of the reference's CGAL-backed ``SimplexGrid`` +
 simplex GCM stage (SURVEY.md §2 components 5 and 9; BASELINE config 5
 "gather-based characteristic interpolation on unstructured grid").
 
-The key TPU transform (SURVEY.md §7 "Simplex gathers"): point location is
-data-dependent and TPU-hostile, but with static dt and static materials the
+The key transform (SURVEY.md §7 "Simplex gathers"): point location is
+data-dependent and accelerator-hostile, but with static dt and static materials the
 characteristic foot of every (node, axis, wave, direction) is *fixed for
 the whole run*. So the containing cells and barycentric weights are
 precomputed host-side (scipy Delaunay ``find_simplex`` — the CGAL-walk
@@ -65,7 +65,7 @@ def locality_order(points: np.ndarray, cells: Optional[np.ndarray] = None,
     what a small DISTINCT-delta set requires.
 
     ``strategy="rcm"``: reverse Cuthill–McKee over the node adjacency
-    (scipy).  Measured honest negative (BASELINE.md round 5): RCM bounds
+    (scipy).  An honest negative: RCM bounds
     the max |delta| (bandwidth) but NOT the number of distinct deltas —
     on a shuffled 17^3 box it leaves ~1060 distinct deltas (vs 6564
     shuffled, 18 lexicographic) because its level sets vary in size, so
@@ -390,9 +390,8 @@ class FootTables:
       sum_d W[d,n] f[n + deltas[d]]`` — when the mesh ordering is local
       (lattice-provenance boxes, RCM-ordered imports) the distinct
       index-delta set is small and the semi-Lagrangian gather becomes a
-      static sparse STENCIL: a handful of weighted rolls, no TPU gathers
-      at all (VERDICT r3 item 3: measured ~1e9 gathered-rows/s is the
-      gather path's hard ceiling on this part).
+      static sparse STENCIL: a handful of weighted rolls, no gathers
+      at all.
     """
 
     ids: np.ndarray
@@ -644,9 +643,8 @@ def compress_foot_tables(tables: Dict, cap: int = 64) -> Dict:
     meshes can be RCM-ordered), ``ids[n,j] - n`` takes few distinct
     values, and the operator regroups BY DELTA into
     ``sum_d W[d] * roll(f, -delta_d)`` — a weighted-roll stencil with NO
-    gathers.  TPU gathers sustain ~1e9 rows/s on this part (measured,
-    tools/simplex_probe.py) while rolls are plain vector ops, so this is
-    the difference between gather-bound and compute-bound sweeps.
+    gathers: rolls are plain vector ops. Whether rolls or gathers are
+    faster on a given device is measured, not assumed.
 
     Tables whose delta set exceeds ``cap`` (genuinely unordered meshes,
     high-order MLS tables with wide neighborhoods) keep ``stencil=None``

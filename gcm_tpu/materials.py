@@ -1,9 +1,9 @@
 """Material models and per-node material fields.
 
-TPU-native counterpart of the reference's ``IsotropicMaterial`` /
+Counterpart of the reference's ``IsotropicMaterial`` /
 ``OrthotropicMaterial`` (SURVEY.md §2 component 2; BASELINE.json: "material
 model (Lame parameters, density)"). Heterogeneous media are represented as
-HBM-resident per-node arrays of the *derived* characteristic quantities the
+device-resident per-node arrays of the *derived* characteristic quantities the
 stage kernel actually consumes — wave speeds, impedances, and the
 zero-invariant coupling ratio — so the hot kernel does no divisions/sqrt.
 
@@ -50,10 +50,10 @@ class IsotropicMaterial:
 class OrthotropicMaterial:
     """Orthotropic elastic material (rho + 9 stiffness constants c_ij).
 
-    TPU counterpart of the reference's OrthotropicMaterial (SURVEY.md §2
+    Counterpart of the reference's OrthotropicMaterial (SURVEY.md §2
     component 2). The per-axis characteristic decomposition is closed-form
     (P speed sqrt(c_aa/rho) along axis a, shear speeds sqrt(c_44..66/rho));
-    it is fully supported in the structured sweeps (jnp and Pallas), in
+    it is fully supported in the structured sweeps, in
     contact solves and on simplex meshes via ``OrthotropicMaterialFields``.
     """
 
@@ -170,7 +170,7 @@ class OrthotropicMaterialFields:
     Stores rho and the 9 stiffness arrays; ``axis_view`` produces the
     closed-form per-axis decomposition quantities consumed by the same
     generic sweep machinery as the isotropic path. Orthotropy is supported
-    in structured sweeps (jnp and Pallas), contact solves and simplex-mesh
+    in structured sweeps, contact solves and simplex-mesh
     sweeps (tests/test_orthotropic.py, test_contact.py, test_simplex.py).
     """
 

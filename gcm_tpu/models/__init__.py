@@ -1,6 +1,6 @@
 """Rheology models: declarative closed-form characteristic decompositions.
 
-TPU-native counterpart of the reference's ``ElasticModel`` / ``AcousticModel``
+Counterpart of the reference's ``ElasticModel`` / ``AcousticModel``
 + ``GcmMatrices`` (SURVEY.md §2 component 3). Where the reference builds
 per-node (R, R^-1, Lambda) matrices and does small matvecs in the hot loop
 (SURVEY.md §3.2), here the decomposition for isotropic media is expressed in

@@ -153,11 +153,9 @@ def permuted_model(model: Model, perm: Tuple[int, ...]) -> Model:
     (including its physical ``axis`` field, which border-value lookups
     use) are unchanged.
 
-    This is the engine-internal canonical layout for contact-coupled
-    multi-body runs: a contact interface on the TPU lane axis pays
-    full-field traffic for every face-slab fixup (BASELINE.md round-4
-    contact study), so the engine moves the contact axis to array dim 0
-    and steps with the permuted model.
+    This is the engines' opt-in canonical layout: a contact-coupled
+    multi-body run moves the contact axis to array dim 0 and steps with
+    the permuted model.
     """
     if sorted(perm) != list(range(model.dim)):
         raise ValueError(f"perm {perm} is not a permutation of axes")

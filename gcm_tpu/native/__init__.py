@@ -2,7 +2,7 @@
 
 The reference's runtime around the solver is C++ (CGAL point location, VTK
 writers — SURVEY.md §1); this package provides the equivalents for the
-TPU-native framework. Everything has a pure-Python fallback: ``available()``
+framework. Everything has a pure-Python fallback: ``available()``
 reports whether the shared library could be built, and callers degrade
 gracefully (scipy global point location, numpy transpose).
 """

@@ -1,6 +1,6 @@
 // gcm_tpu native runtime components.
 //
-// TPU-native framework's C++ layer (SURVEY.md §2: the reference's
+// The framework's C++ layer (SURVEY.md §2: the reference's
 // CGAL point-location and VTK writer are native; so are ours):
 //
 //  - walk_locate: visibility-walk point location on a simplex mesh with

@@ -1,6 +1,6 @@
 """Semi-Lagrangian interpolation stencils for the grid-characteristic method.
 
-TPU-native counterpart of the reference's ``EqualDistanceLineInterpolator``
+Counterpart of the reference's ``EqualDistanceLineInterpolator``
 (SURVEY.md §2 component 8; reference mount empty this round — contract is
 SURVEY.md §0.3): on a uniform grid line, the characteristic foot of a wave
 with node-local speed ``c`` lies at offset ``delta = -sign(lambda) * nu``
@@ -8,7 +8,7 @@ cells from the node, where ``nu = c*dt/h in [0, 1]`` is the local Courant
 number. Interpolating the field there is an ``(order+1)``-point Lagrange
 stencil whose *offsets are static* and whose *weights are per-node fields*
 (functions of ``nu`` only) — which is exactly what makes the GCM stage a
-fused, gather-free, whole-array op on TPU.
+fused, gather-free, whole-array op.
 
 Conventions
 -----------
@@ -27,7 +27,7 @@ Conventions
 
 The weight formulas are plain arithmetic on whatever array type is passed
 (numpy or jax.numpy), so this module is shared by the vectorized solver,
-the Pallas kernels, and the NumPy test oracle.
+and the NumPy test oracle.
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ def shift(f, j: int, axis: int):
 
     Implemented as slice+concat so XLA's SPMD partitioner turns it into a
     neighbor halo exchange (collective-permute) when ``f`` is sharded along
-    ``axis`` — the TPU-native analogue of the reference's MPI halo Sendrecv
+    ``axis`` — the analogue of the reference's MPI halo Sendrecv
     (SURVEY.md §2 component 17).
     """
     if j == 0:

@@ -1,14 +1,13 @@
 """The grid-characteristic stage: one dimensional-splitting sweep, whole-array.
 
-TPU-native counterpart of the reference's hot loop
+Counterpart of the reference's hot loop
 ``GridCharacteristicMethod::stage`` (SURVEY.md §2 component 7, §3.2): where
 the reference iterates per node doing R^{-1}·u matvecs, 1D interpolation and
 R·w back-transforms, here the closed-form pair/zero decomposition
 (gcm_tpu.models.spec) turns the whole stage into a handful of fused
 elementwise ops + static edge-clamped shifts over the full field arrays —
-one pass, no gathers, VPU-only. This jnp formulation is the semantics of
-record; gcm_tpu.ops.pallas_stage provides the hand-fused kernel with
-identical numerics.
+one pass, no gathers. This jnp formulation is the semantics of record;
+gcm_tpu.ops.hopper_step runs the same numerics as one CUDA pass per step.
 
 Material quantities arrive as a per-axis ``AxisView`` (materials.axis_view):
 per-pair wave-speed and impedance fields and per-zero coupling ratios —
@@ -102,7 +101,7 @@ def stage_pair_updates(
 
     ``dim_axis``: spatial array dimension the sweep runs along, when it
     differs from the PHYSICAL ``axis`` (permuted slab layouts — contact
-    fixups move thin slab axes off the TPU lane dim; see
+    fixups move thin slab axes to the front; see
     solver.multi.apply_contact_fixups).
     """
     ax = dim_axis if dim_axis is not None else axis

@@ -2,15 +2,13 @@
 
 Two distribution paths exist (SURVEY.md §5.8):
 
-1. **GSPMD (default, gcm_tpu.parallel.sharding)**: jit the global program
-   over sharded arrays; XLA derives the halo collectives. Simple, always
-   correct, but cannot partition ``pallas_call`` ops.
-2. **shard_map + explicit halo (this module)**: each shard runs the sweep
-   on its local block extended by an r-deep halo fetched from neighbors
-   with ``lax.ppermute`` (the ICI neighbor collective — the reference's
-   MPI_Sendrecv analogue, SURVEY.md §2 component 17). Required for the
-   fused Pallas sweep kernels on multiple chips, and the place where halo
-   transfer overlaps interior compute.
+1. **GSPMD (gcm_tpu.parallel.sharding)**: jit the global program over
+   sharded arrays; XLA derives the halo collectives.
+2. **shard_map + explicit halo (this module, the engines' mesh path)**:
+   each shard runs the jnp sweep on its local block extended by an r-deep
+   halo fetched from neighbors with ``lax.ppermute`` (the reference's
+   MPI_Sendrecv analogue, SURVEY.md §2 component 17; on GPUs XLA hands the
+   permutes to NCCL).
 
 Border conditions: the raw sweep runs border-free on the extended block;
 global-edge shards then apply the exactly-equivalent post-fixup
@@ -19,11 +17,8 @@ predicates — one program for every shard.
 
 Materials are static: engines pass a ONCE-prepared per-axis halo-extended
 material pytree (:func:`extend_mats_once`), so the per-step exchange moves
-only the state (VERDICT r2 weak #5). Passing a plain material pytree still
-works (setup-free callers, tests) and re-exchanges it each sweep. The
-PRODUCTION multi-chip path (gcm_tpu.parallel.fused_spmd) additionally
-overlaps the state-slab exchange with interior compute; prefer it where
-its scope fits (3D, orders 1–4).
+only the state. Passing a plain material pytree still works (setup-free
+callers, tests) and re-exchanges it each sweep.
 """
 
 from __future__ import annotations
@@ -87,7 +82,7 @@ def _crop(f: jnp.ndarray, ax: int, r: int):
 
 def _spatial_names(model_dim: int, mesh: Mesh) -> Dict[int, Optional[str]]:
     """Mesh-axis name per spatial dim ('sx' on dim 0, 'sy' on dim 1 in 3D;
-    the lane dim is never sharded). Tolerates meshes without 'sx' — e.g.
+    the last, contiguous dim is never sharded). Tolerates meshes without 'sx' — e.g.
     the canonical+sharded ('sy',)-mesh (sharding._spatial_spec supports
     it; hard-coding 'sx' here produced confusing shard_map spec errors,
     code-review r5)."""
@@ -141,30 +136,18 @@ def make_spmd_raw_stage(
     dt: float,
     h: Sequence[float],
     order: int,
-    use_pallas: bool = True,
-    pallas_cx: int = 64,
 ):
-    """Border-free single-sweep shard_map kernel: ``stage(u, mat, axis)``.
+    """Border-free single-sweep shard_map stage: ``stage(u, mat, axis)``.
 
-    The raw building block for post-fixup compositions (multi-body fast
+    The raw building block for post-fixup compositions (multi-body sharded
     path: raw sweeps here, borders/contacts as GSPMD slab fixups outside).
     """
     dim = model.dim
     r = stencil_radius(order)
     spatial_names = _spatial_names(dim, mesh)
 
-    if use_pallas:
-        from gcm_tpu.ops.pallas_stage import pallas_stage as _pstage
-        from gcm_tpu.utils.backend import on_tpu as _on_tpu
-
-        _interp = not _on_tpu(mesh)   # mesh platform, not process default
-
-        def raw(u, mat, axis):
-            return _pstage(model, u, mat, dt, h, axis, order, None,
-                           cx=pallas_cx, interpret=_interp)
-    else:
-        def raw(u, mat, axis):
-            return jnp_stage(model, u, mat, dt, h, axis, order, None)
+    def raw(u, mat, axis):
+        return jnp_stage(model, u, mat, dt, h, axis, order, None)
 
     def local_stage(u, mats, axis, prepared):
         mat = mats["base"] if prepared else mats
@@ -205,8 +188,6 @@ def make_spmd_step(
     h: Sequence[float],
     order: int,
     borders: Optional[Borders] = None,
-    use_pallas: bool = False,
-    pallas_cx: int = 64,
 ):
     """Build a jitted shard_map full step over ``mesh`` (axes 'sx'[, 'sy']).
 
@@ -217,18 +198,8 @@ def make_spmd_step(
     r = stencil_radius(order)
     spatial_names = _spatial_names(dim, mesh)
 
-    if use_pallas:
-        from gcm_tpu.ops.pallas_stage import pallas_stage as _pstage
-        from gcm_tpu.utils.backend import on_tpu as _on_tpu
-
-        _interp = not _on_tpu(mesh)
-
-        def raw_stage(u, mat, axis):
-            return _pstage(model, u, mat, dt, h, axis, order, None,
-                           cx=pallas_cx, interpret=_interp)
-    else:
-        def raw_stage(u, mat, axis):
-            return jnp_stage(model, u, mat, dt, h, axis, order, None)
+    def raw_stage(u, mat, axis):
+        return jnp_stage(model, u, mat, dt, h, axis, order, None)
 
     def local_step(u, mats, axes, prepared):
         mat = mats["base"] if prepared else mats
@@ -268,8 +239,6 @@ def make_spmd_step(
                 mesh=mesh,
                 in_specs=(u_spec, jax.tree.map(lambda _: m_spec, mats)),
                 out_specs=u_spec,
-                # pallas_call's ShapeDtypeStruct outputs carry no varying-
-                # mesh-axes annotation; skip the vma check
                 check_vma=False,
             ))
             _cache[(axes, prepared)] = fn

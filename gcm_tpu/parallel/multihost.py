@@ -1,12 +1,12 @@
-"""Multi-host attach: pod-slice initialization (SURVEY.md §5.8).
+"""Multi-process attach (SURVEY.md §5.8).
 
-The reference scales with MPI ranks; here a multi-host run is the same
-program started once per host with ``initialize()`` called first — JAX then
-exposes every chip in the slice through ``jax.devices()`` and the standard
-domain mesh (gcm_tpu.parallel.sharding) spans hosts transparently, with XLA
-routing halo collectives over ICI within a host and DCN across hosts.
+The reference scales with MPI ranks; here a multi-process run is the same
+program started once per process with ``initialize()`` called first — JAX
+then exposes every device of every process through ``jax.devices()`` and
+the standard domain mesh (gcm_tpu.parallel.sharding) spans processes
+transparently, with XLA routing the halo collectives between them.
 
-Single-host (or single-process) runs: ``initialize()`` is a no-op.
+Single-process runs: ``initialize()`` is a no-op.
 """
 
 from __future__ import annotations
@@ -18,27 +18,16 @@ from typing import Optional
 def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> bool:
-    """Initialize jax.distributed if a multi-process environment is present.
+    """Initialize jax.distributed for a multi-process run.
 
-    Environment autodetection (TPU pods set these): uses
-    ``jax.distributed.initialize()`` defaults when env metadata exists;
-    explicit args override. Returns True if distributed mode was entered.
+    Explicit arguments win; without ``coordinator``, the environment's
+    ``COORDINATOR_ADDRESS`` names it. With neither this is a no-op.
+    Returns True if distributed mode was entered.
     """
     import jax
 
-    explicit = coordinator is not None
-    # COORDINATOR_ADDRESS / MEGASCALE_COORDINATOR_ADDRESS are sufficient
-    # triggers on their own; the localhost guard applies only to the
-    # TPU_WORKER_HOSTNAMES trigger (AND-combining it with the other two
-    # made them dead code — a launch that set only COORDINATOR_ADDRESS
-    # silently never spanned hosts; code-review r5)
-    autodetect = (
-        "COORDINATOR_ADDRESS" in os.environ
-        or "MEGASCALE_COORDINATOR_ADDRESS" in os.environ
-        or os.environ.get("TPU_WORKER_HOSTNAMES", "localhost") != "localhost"
-    )
-
-    if not explicit and not autodetect:
+    coordinator = coordinator or os.environ.get("COORDINATOR_ADDRESS")
+    if not coordinator:
         return False
     kwargs = {}
     if coordinator is not None:

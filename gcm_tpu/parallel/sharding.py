@@ -1,19 +1,19 @@
 """Spatial domain decomposition as sharding metadata, not code.
 
-TPU-native counterpart of the reference's MPI distribution (SURVEY.md §2
+Counterpart of the reference's MPI distribution (SURVEY.md §2
 component 17, §5.8): the reference splits its CubicGrid along one axis
 across MPI ranks and hand-codes halo Sendrecv per stage. Here the *same
 global program* (gcm_tpu.solver.gcm) runs under jit over a
 ``jax.sharding.Mesh``; the stencil shifts (slice+concat in
-gcm_tpu.ops.interp.shift) partition into neighbor collective-permutes over
-ICI, and the boundary-slab writes land on edge shards — XLA's SPMD
+gcm_tpu.ops.interp.shift) partition into neighbor collective-permutes,
+and the boundary-slab writes land on edge shards — XLA's SPMD
 partitioner derives all communication. Sharded and unsharded executions are
 numerically identical (tests/test_sharding.py).
 
 Mesh axes are named after the spatial axes they split: ``('sx', 'sy')``.
-The innermost (last) spatial axis is never sharded — it is the TPU lane
-dimension and also the cheapest axis to keep contiguous for the stage
-sweeps.
+The innermost (last) spatial axis is never sharded: it is the contiguous
+axis in memory, so every shard keeps whole contiguous rows for the stage
+sweeps and the halo slabs of the sharded axes are contiguous blocks.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def domain_mesh(
     """Build a device mesh over the shardable spatial axes.
 
     dim 1 → 1D mesh ('sx',) — but a 1D domain shards its only axis;
-    dim 2 → ('sx',) over the first axis (the second stays lane-contiguous);
+    dim 2 → ('sx',) over the first axis (the second stays contiguous);
     dim 3 → ('sx', 'sy') near-square over the first two axes.
     """
     devices = list(devices if devices is not None else jax.devices())

@@ -1,6 +1,6 @@
 """Named scenarios — the five BASELINE.json configs as runnable Tasks.
 
-TPU-native counterpart of the reference's compiled-in predefined tasks
+Counterpart of the reference's compiled-in predefined tasks
 (``src/launcher/tasks``, SURVEY.md §2 component 16; the mount was empty, so
 the scenarios are built to BASELINE.json's config list verbatim):
 

@@ -1,6 +1,6 @@
 """Seismogram (detector trace) output.
 
-TPU-native counterpart of the reference's binary seismograph / point
+Counterpart of the reference's binary seismograph / point
 ``Detector`` output (SURVEY.md §2 component 15): receiver traces are
 accumulated on device by the engine scan and saved host-side here, as an
 .npz with metadata plus a simple flat binary (.bin) for external tooling.

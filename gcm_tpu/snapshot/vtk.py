@@ -1,6 +1,6 @@
 """VTK XML writers: .vti (uniform grids) and .vtu (simplex meshes).
 
-TPU-native counterpart of the reference's ``VtkSnapshotter`` (SURVEY.md §2
+Counterpart of the reference's ``VtkSnapshotter`` (SURVEY.md §2
 component 15). Host-side, dependency-free (raw-appended VTK XML, readable
 by ParaView/VisIt/meshio): the engine device_gets the field pytree at the
 snapshot cadence and streams it here. A C++ fast path for high-rate

@@ -1,6 +1,6 @@
 """Characteristic border conditions as masked boundary-slab corrections.
 
-TPU-native counterpart of the reference's border correctors (SURVEY.md §2
+Counterpart of the reference's border correctors (SURVEY.md §2
 component 10; §0.4). At a domain face, the invariant *leaving* the domain
 (w_L at a low face never leaves — see below) is known from the interior
 interpolation; the invariant *entering* is chosen to satisfy the physical

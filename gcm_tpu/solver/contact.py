@@ -1,6 +1,6 @@
 """Contact and fracture between bodies: paired characteristic face solves.
 
-TPU-native counterpart of the reference's ``ContactCondition`` + fracture
+Counterpart of the reference's ``ContactCondition`` + fracture
 (SURVEY.md §2 component 11; BASELINE.json config 4 "free-surface +
 contact/fracture"). Two bodies meet along a grid-conforming interface
 (body_a's high face ↔ body_b's low face on the contact axis, collocated
@@ -277,9 +277,9 @@ def apply_contact_post(
 
     The pair reconstruction is invertible, so the interface condition can
     be applied after the sweep from the face slabs alone — the composition
-    point that lets the multi-body engine run each body's sweep through the
-    fused Pallas kernels and stitch contacts with cheap slab math (mirrors
-    solver.boundary.apply_borders_post). ``u_old_*`` are the pre-sweep
+    point that lets the multi-body engine run raw per-body sweeps (sharded
+    halo stages, full steps) and stitch contacts with cheap slab math
+    (mirrors solver.boundary.apply_borders_post). ``u_old_*`` are the pre-sweep
     states (needed to re-propagate the zero-speed invariants at the face).
 
     ``idx_axis``: spatial array dimension of the interface normal when the

@@ -1,13 +1,13 @@
 """Non-conforming contact: interface interpolation maps between face grids.
 
-TPU-native counterpart of the reference's contact between *independently
+Counterpart of the reference's contact between *independently
 meshed* bodies (SURVEY.md §2 component 11: "two-mesh contact ... pairs of
 border nodes" — the reference pairs arbitrary border nodes across bodies,
 it does not require collocated interface nodes). Round-2 verdict missing #4
 / next-round item 5: bodies with spacing h and 2h (or offset node lattices)
 must couple.
 
-Design — everything static, built once at setup (the TPU discipline that
+Design — everything static, built once at setup (the discipline that
 runs through the whole framework: no data-dependent addressing inside jit):
 
 - The interface region is the geometric overlap of body_a's high face and
@@ -33,8 +33,8 @@ runs through the whole framework: no data-dependent addressing inside jit):
 
 The solve is applied as a post-sweep fixup on raw (border/contact-free)
 sweeps — the same invertible-reconstruction composition as
-solver.contact.apply_contact_post — so it rides every kernel path (jnp,
-per-sweep pallas, fused) unchanged.
+solver.contact.apply_contact_post — so it rides every multi-body path
+(in-stage, sharded post-fixup) unchanged.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Per-node ODE correctors applied after the hyperbolic sweeps.
 
-TPU-native counterpart of the reference's ODE correctors (SURVEY.md §2
+Counterpart of the reference's ODE correctors (SURVEY.md §2
 component 12; §0.5): viscoelastic Maxwell relaxation and continual damage.
 Each corrector is a pure elementwise update ``(u, aux, dt) -> (u, aux)``
 carried inside the jitted scan — split-step (Godunov) coupling with the

@@ -1,6 +1,6 @@
 """The grid-characteristic time step: stages + borders + zero invariants.
 
-TPU-native counterpart of the reference's ``DefaultSolver::nextTimeStep`` /
+Counterpart of the reference's ``DefaultSolver::nextTimeStep`` /
 ``stage(axis, dt)`` (SURVEY.md §2 components 7+10, §3.1): one time step is a
 sequence of 1D characteristic sweeps (dimensional splitting), with the axis
 order reversed on alternate steps for second-order splitting accuracy

@@ -7,7 +7,7 @@ grid-conforming contact plane normal to ``axis`` (collocated interface
 nodes, body_a on the low side / body_b on the high side); the pairing is
 precomputed host-side by coordinate matching, and the interface solve runs
 as a **post-sweep fixup on the paired nodes** — static-index gathers and
-scatters, the TPU-native form of the reference's per-node-pair loop:
+scatters, the static-index form of the reference's per-node-pair loop:
 
 - during body_a's sweep along ``axis`` the invariant entering from the
   high side is unknown (its characteristic foot leaves the hull — the

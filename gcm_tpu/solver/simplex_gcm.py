@@ -1,11 +1,11 @@
 """Grid-characteristic method on simplex meshes: gather-based sweeps.
 
-TPU-native counterpart of the reference's simplex GCM specialization
+Counterpart of the reference's simplex GCM specialization
 (SURVEY.md §2 component 9, §3.3; BASELINE config 5). Same pair/zero
 characteristic algebra as the cubic solver (gcm_tpu.models.spec), but the
 semi-Lagrangian interpolation is a barycentric gather over precomputed
 static tables (gcm_tpu.grids.simplex.build_foot_tables) — ``jnp.take`` over
-node arrays, fully static indices, TPU-compatible.
+node arrays, fully static indices.
 
 State layout: ``u[ncomp, N]``; material fields ``[N]``. Border conditions:
 the full characteristic set (absorbing, free, fixed_force, fixed_velocity),
@@ -115,10 +115,9 @@ def simplex_stage(
     comps: Dict[int, jnp.ndarray] = {}
 
     # ---- batched interpolation: ONE row-gather per distinct foot table.
-    # TPU gathers pay per index, not per fetched byte at these widths, so
-    # fetching all components a table serves in one [N, K, m] gather is
-    # several times faster than per-component 1-D gathers (shared P/S
-    # tables serve two S pairs in 3D: 12 gathers/stage become 4).
+    # Fetching all components a table serves in one [N, K, m] gather
+    # issues one gather per table instead of one per component (shared
+    # P/S tables serve two S pairs in 3D: 12 gathers/stage become 4).
     table_comps: Dict[Tuple, list] = {}
     pair_keys = {}
     for k, p in enumerate(st.pairs):
@@ -143,14 +142,11 @@ def simplex_stage(
     for key in stencil_keys:
         # compressed-stencil form (grids.simplex.compress_foot_tables):
         # the gather regroups by index delta into |D| weighted rolls of
-        # the table's OWN component rows — no TPU gathers (measured ~1e9
-        # gathered-rows/s is the gather path's ceiling on this part;
-        # rolls are plain vector ops).  Out-of-range rolled rows wrap
-        # circularly, but their weight is structurally zero.  Comp-major
-        # throughout: no transposes.  (Sharing rolls of the FULL u across
-        # the stage's tables — half the roll ops — was measured 34% SLOWER
-        # at the 65^3 production mesh: the 9-comp rolled volume outweighs
-        # the op-count saving.  Per-table narrow rolls stay.)
+        # the table's OWN component rows — no gathers.  Out-of-range
+        # rolled rows wrap circularly, but their weight is structurally
+        # zero.  Comp-major throughout: no transposes.  Per-table narrow
+        # rolls: rolling the FULL 9-comp u once per stage moves more
+        # data than the op-count saving is worth.
         t = tables[key]
         clist = table_comps[key]
         deltas, wst = t.stencil
@@ -163,10 +159,8 @@ def simplex_stage(
         interp[key] = {c: acc[j] for j, c in enumerate(clist)}
     if gather_by_k:
         # fallback for non-compressible tables: ONE merged node-major
-        # row-gather per stencil width — fetch width is free (per-index
-        # cost dominates, tools/simplex_probe.py), so gathering all ncomp
-        # per row and merging tables saves the per-table transposes and
-        # dispatches (~20% measured over the round-3 per-table form)
+        # row-gather per stencil width — gathering all ncomp per row and
+        # merging tables saves the per-table transposes and dispatches
         u_nm = u.T                                       # [N, ncomp]
         for kw, keys_k in gather_by_k.items():
             ids_all = jnp.concatenate(

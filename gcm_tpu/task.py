@@ -1,4 +1,4 @@
-"""Scenario configuration — the TPU-native analogue of the reference ``Task``.
+"""Scenario configuration — the analogue of the reference ``Task``.
 
 The reference describes a whole simulation as one plain struct tree: grid
 geometry, materials-by-area, initial conditions-by-area, border conditions
@@ -414,6 +414,18 @@ class DetectorSpec:
 
 # ---------------------------------------------------------------- task
 
+#: accepted ``kernel`` values of Task and SimplexTask
+KERNELS = ("auto", "jnp")
+
+
+def check_kernel(kernel: str) -> str:
+    """Validate a ``kernel`` choice; unknown names (including those of
+    kernels that no longer exist) raise, listing the accepted values."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; accepted values: "
+                         + ", ".join(KERNELS))
+    return kernel
+
 @dataclasses.dataclass(frozen=True)
 class Task:
     """One body: grid + model + materials + ICs/BCs + time + outputs."""
@@ -432,41 +444,22 @@ class Task:
     detectors: Optional[DetectorSpec] = None
     symmetrize_stages: bool = True     # reverse axis order on odd steps
     correctors: Tuple = ()             # ODE correctors (solver.correctors)
-    #: compute path: "auto" resolves to the fused Pallas kernel on TPU
-    #: backends when the model/shape qualifies (the flagship fast path is
-    #: the default a user gets, VERDICT r2 weak #4), and to the jnp
-    #: semantics-of-record path elsewhere; explicit values pin the path.
-    kernel: str = "auto"               # "auto" | "jnp" | "pallas" | "pallas_fused"
-    #: HBM dtype of the fused kernels' static material stack. "bf16" halves
-    #: the material DMA stream (~20 of ~117 B/pt on the 3D flagship path);
-    #: all sweep arithmetic stays f32 (windows are upcast right after the
-    #: DMA). Opt-in: materials are then rounded to 8-bit mantissa (~0.4%),
-    #: which perturbs wave speeds/impedances by the same relative amount.
-    mat_dtype: str = "f32"             # "f32" | "bf16"
+    #: compute path: "auto" takes the one-pass Hopper step kernel when
+    #: compute lands on a GPU and the task qualifies
+    #: (gcm_tpu.ops.hopper_step.eligible), the jnp sweeps otherwise;
+    #: "jnp" pins the jnp sweeps (the semantics of record)
+    kernel: str = "auto"
     scan_unroll: int = 1               # steps-loop unroll inside the jitted scan
-    #: run the symmetrized step pair as ONE temporally blocked fused-kernel
-    #: call (2r halo, half the HBM passes). Opt-in: measured on v5e the
-    #: fused kernel is VPU-compute-bound in healthy windows, so the pair
-    #: kernel's DMA saving is cancelled by its halo recompute (~3% slower
-    #: there; ~10% faster when HBM is the constraint — BASELINE.md r4).
-    temporal_block: bool = False
-    #: store state in a permuted (canonical) layout chosen so the LAST
-    #: (TPU lane) dimension is 128-aligned, unlocking the fused kernel for
-    #: shapes it otherwise rejects (e.g. 256x256x64 -> stored 256x64x256).
-    #: Opt-in because the dimensional-splitting axis order follows storage
-    #: (an equally valid symmetrized pair, but numerically a different
-    #: splitting than the default x,y,z/z,y,x). Inputs and every output
-    #: (results, snapshots, checkpoints, detectors) stay in task layout.
+    #: store state in a permuted (canonical) layout whose LAST dimension is
+    #: 128-aligned (e.g. 256x256x64 -> stored 256x64x256). Opt-in because
+    #: the dimensional-splitting axis order follows storage (an equally
+    #: valid symmetrized pair, but numerically a different splitting than
+    #: the default x,y,z/z,y,x). Inputs and every output (results,
+    #: snapshots, checkpoints, detectors) stay in task layout.
     canonical_layout: bool = False
 
     def __post_init__(self):
-        # validate free-form string knobs up front — a typo like "bf16 "
-        # would otherwise silently run the f32 path (advisor r3)
-        if self.mat_dtype not in ("f32", "bf16"):
-            raise ValueError(f"unknown mat_dtype {self.mat_dtype!r} "
-                             "(expected 'f32' or 'bf16')")
-        if self.kernel not in ("auto", "jnp", "pallas", "pallas_fused"):
-            raise ValueError(f"unknown kernel {self.kernel!r}")
+        check_kernel(self.kernel)
 
     def border(self, axis: int, side: int) -> BorderSpec:
         return self.borders.get((axis, side), BorderSpec("absorbing"))
@@ -558,9 +551,11 @@ class SimplexTask:
     #: characteristic interpolation order: 1 = barycentric over the
     #: containing cell, 2 = least-squares quadratic reconstruction tables
     order: int = 1
-    #: compute path: "auto" (fused Pallas sweeps on TPU when eligible),
-    #: "pallas_simplex" (require fused), or "jnp"
+    #: compute path: "auto" or "jnp" — both run the jnp roll/gather sweeps
     kernel: str = "auto"
+
+    def __post_init__(self):
+        check_kernel(self.kernel)
 
     @property
     def is_orthotropic(self) -> bool:

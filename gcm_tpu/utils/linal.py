@@ -1,6 +1,6 @@
 """Small dense linear-algebra helpers: the PDE Jacobians A_a per model.
 
-TPU-native counterpart of the reference's ``linal`` + ``GcmMatrices``
+Counterpart of the reference's ``linal`` + ``GcmMatrices``
 (SURVEY.md §2 components 1 and 3) — but here the full matrices exist ONLY
 for verification and tooling: the solver uses the closed-form pair/zero
 decomposition (gcm_tpu.models.spec), and these builders let tests check

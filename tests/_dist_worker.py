@@ -6,9 +6,8 @@ process-local shards, runs N sharded jnp GCM steps (XLA inserts the
 cross-process halo collectives), allgathers, and process 0 writes the
 result. The parent pytest process compares against its single-process run.
 
-Round 5 adds the ``fused`` mode (VERDICT r4 missing #3): the PRODUCTION
-multi-chip path — interior/ring Pallas kernels (interpret mode on CPU)
-under shard_map with the two-phase ``ppermute`` slab exchange — executes
+The ``halo`` mode runs the engines' mesh path — the jnp sweep under
+shard_map with explicit ``ppermute`` halo exchange (parallel.halo) —
 across a REAL process boundary, not just inside one process's virtual
 mesh.  The jnp mode keeps covering the GSPMD global program.
 
@@ -34,17 +33,16 @@ import numpy as np  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _run_fused(nproc, pid, outfile):
-    """Step the fused interior/ring spmd kernels across the 2-process
-    ('sx',) mesh — cross-process ppermute slab exchange included."""
+def _run_halo(nproc, pid, outfile):
+    """Step the shard_map halo step across the 2-process ('sx','sy') mesh
+    — cross-process ppermute halo exchange included."""
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from gcm_tpu.materials import MaterialFields
     from gcm_tpu.models.spec import get_model
-    from gcm_tpu.parallel.fused_spmd import (
-        extended_mstack, make_fused_spmd_step)
+    from gcm_tpu.parallel.halo import extend_mats_once, make_spmd_step
     from gcm_tpu.parallel.sharding import domain_mesh
     from gcm_tpu.task import BorderSpec
 
@@ -67,6 +65,7 @@ def _run_fused(nproc, pid, outfile):
     # cross the process boundary (each process owns one mesh row)
     mesh = domain_mesh(3)
     su = NamedSharding(mesh, P(None, "sx", "sy", None))
+    sm = NamedSharding(mesh, P("sx", "sy", None))
 
     def put(global_np, sharding):
         arr = jnp.asarray(global_np)
@@ -74,13 +73,11 @@ def _run_fused(nproc, pid, outfile):
             arr.shape, sharding, lambda idx: arr[idx])
 
     u = put(u0, su)
-    mat = MaterialFields.from_arrays(rho, lam, mu, xp=np, dtype=np.float32)
-    mext = extended_mstack(model, mat, mesh, order=2, dtype=jnp.float32)
-    # bx/by below the shard extents so the interior grid is non-empty on
-    # every shard (nxl=24 -> ntx=6, nyl=32 -> nty=4): BOTH kernels run,
-    # and the ring consumes slabs ppermuted across the process boundary
-    step_fn = make_fused_spmd_step(model, mesh, dt, h, 2, borders,
-                                   bx=4, by=8, interpret=True)
+    mat_np = MaterialFields.from_arrays(rho, lam, mu, xp=np,
+                                        dtype=np.float32)
+    mat = jax.tree.map(lambda a: put(a, sm), mat_np)
+    mext = extend_mats_once(mat, mesh, 3, 2)
+    step_fn = make_spmd_step(model, mesh, dt, h, 2, borders)
     for n in range(4):
         axes = (0, 1, 2) if n % 2 == 0 else (2, 1, 0)
         u = step_fn(u, mext, axes)
@@ -88,7 +85,7 @@ def _run_fused(nproc, pid, outfile):
     if pid == 0:
         np.save(outfile, np.asarray(result))
     multihost_utils.sync_global_devices("done")
-    print(f"worker {pid} OK (fused)", flush=True)
+    print(f"worker {pid} OK (halo)", flush=True)
 
 
 def main():
@@ -105,8 +102,8 @@ def main():
     assert info["process_count"] == nproc, info
     assert info["global_devices"] == 2 * nproc, info
 
-    if mode == "fused":
-        return _run_fused(nproc, pid, outfile)
+    if mode == "halo":
+        return _run_halo(nproc, pid, outfile)
 
     import jax.numpy as jnp
     from jax.experimental import multihost_utils

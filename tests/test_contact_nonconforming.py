@@ -10,8 +10,9 @@ coupling runs through static interface-interpolation maps
 - an h vs 2h interface transmits a smooth P wave with near-unit amplitude
   and only a small reflected remnant (same material: the monolithic answer
   has zero reflection);
-- the MultiBodyEngine auto-detects mismatched faces, runs all kernels'
-  composition path, and fracture/friction logic works per side.
+- the MultiBodyEngine auto-detects mismatched faces, runs both the
+  in-stage and the (mesh) post-fixup composition, and fracture/friction
+  logic works per side.
 """
 
 import numpy as np
@@ -87,7 +88,17 @@ def test_conforming_maps_degenerate_to_collocated_solve(rng):
                                    rtol=1e-12, atol=1e-12)
 
 
-def _two_body_engine(kernel="jnp", h_b=1.0, tensile=None, nsteps=140,
+def _mesh(path):
+    """None for the in-stage path; a 1-device ('sx',) mesh puts the engine
+    on its shard_map raw-sweep + post-fixup composition."""
+    if path == "jnp":
+        return None
+    from gcm_tpu.parallel.sharding import domain_mesh
+
+    return domain_mesh(2, devices=jax.devices()[:1])
+
+
+def _two_body_engine(path="jnp", h_b=1.0, tensile=None, nsteps=140,
                      cfl=0.9, sigma=24.0):
     """Coarse body (h=2) -> fine body (h=h_b), same material, y-uniform P
     packet traveling +x toward the interface at x=120."""
@@ -123,28 +134,25 @@ def _two_body_engine(kernel="jnp", h_b=1.0, tensile=None, nsteps=140,
     mk = lambda grid, ics, c: Task(
         name="nc", model="elastic2d", grid=grid, default_material=MAT,
         initial=tuple(ics), borders=dict(borders),
-        time=TimeSpec(cfl=c, nsteps=nsteps), order=2, kernel=kernel)
+        time=TimeSpec(cfl=c, nsteps=nsteps), order=2)
     tasks = {"a": mk(ga, [ic], cfl), "b": mk(gb, [], cfl)}
     contact = ContactSpec("a", "b", axis=0, kind="bonded",
                           tensile_strength=tensile)
-    return MultiBodyEngine(tasks, [contact], dtype=jnp.float64), packet
+    return MultiBodyEngine(tasks, [contact], dtype=jnp.float64,
+                           mesh=_mesh(path)), packet
 
 
-@pytest.mark.parametrize("kernel", ["jnp", "pallas"])
-def test_h_vs_2h_transmission(kernel, monkeypatch):
+@pytest.mark.parametrize("path", ["jnp", "mesh"])
+def test_h_vs_2h_transmission(path):
     """A P packet crosses a 2h->h interface in one material. The monolithic
     answer has zero reflection and the fine half dissipates *less* than a
     coarse grid, so the transmitted peak must lie between the all-coarse
     monolithic control (same dt) and the exact amplitude 1."""
     from gcm_tpu.engine import Engine
 
-    if kernel == "pallas":
-        from test_multibody_fast import _interpret_pallas
-
-        _interpret_pallas(monkeypatch)
-
-    eng, packet = _two_body_engine(kernel=kernel)
+    eng, packet = _two_body_engine(path=path)
     assert 0 in eng.ncmaps, "mismatched faces must auto-build maps"
+    assert (eng._raw_stage is not None) == (path == "mesh")
     res = eng.run()
     ua, ub = res.bodies["a"], res.bodies["b"]
     assert np.isfinite(ua).all() and np.isfinite(ub).all()
@@ -182,19 +190,14 @@ def test_h_vs_2h_transmission(kernel, monkeypatch):
     assert refl < mono_wake + 0.02, (refl, mono_wake)
 
 
-@pytest.mark.parametrize("kernel", ["jnp", "pallas"])
-def test_shear_field_exact_across_nonconforming_interface(kernel, monkeypatch):
+@pytest.mark.parametrize("path", ["jnp", "mesh"])
+def test_shear_field_exact_across_nonconforming_interface(path):
     """Analytic anchor on y-VARYING data: vx = alpha*y, sigma = 0 evolves
     exactly as sxy(t) = mu*alpha*t with vx unchanged (uniform simple
     shear). All fields are affine in y, linear interpolation maps are
     exact on affine data, so interface nodes must match the infinite-medium
     solution to roundoff inside the outer borders' domain of dependence."""
     from gcm_tpu.engine_multi import MultiBodyEngine
-
-    if kernel == "pallas":
-        from test_multibody_fast import _interpret_pallas
-
-        _interpret_pallas(monkeypatch)
 
     model = get_model("elastic2d")
     alpha = 1e-3
@@ -208,10 +211,11 @@ def test_shear_field_exact_across_nonconforming_interface(kernel, monkeypatch):
     mk = lambda grid: Task(
         name="sh", model="elastic2d", grid=grid, default_material=MAT,
         initial=(ic,), borders=dict(borders),
-        time=TimeSpec(cfl=0.8, nsteps=nsteps), order=2, kernel=kernel)
+        time=TimeSpec(cfl=0.8, nsteps=nsteps), order=2)
     eng = MultiBodyEngine(
         {"a": mk(ga), "b": mk(gb)},
-        [ContactSpec("a", "b", axis=0, kind="bonded")], dtype=jnp.float64)
+        [ContactSpec("a", "b", axis=0, kind="bonded")], dtype=jnp.float64,
+        mesh=_mesh(path))
     assert 0 in eng.ncmaps
     res = eng.run()
     t = res.t
@@ -239,14 +243,14 @@ def test_shear_field_exact_across_nonconforming_interface(kernel, monkeypatch):
 def test_nonconforming_fracture_breaks_per_side():
     """A tensile pulse at a 2h->h interface breaks both sides' bond masks;
     broken crack faces are traction-free, so transmission collapses."""
-    eng, _ = _two_body_engine(kernel="jnp", tensile=1e-3, nsteps=140,
+    eng, _ = _two_body_engine(tensile=1e-3, nsteps=140,
                               sigma=12.0)
     res = eng.run()
     m_a = res.bonded[0]["a"]
     m_b = res.bonded[0]["b"]
     assert m_a.max() == 0.0 and m_b.max() == 0.0  # tension breaks all rows
     assert np.isfinite(res.bodies["a"]).all()
-    eng2, _ = _two_body_engine(kernel="jnp", tensile=None, nsteps=140,
+    eng2, _ = _two_body_engine(tensile=None, nsteps=140,
                                sigma=12.0)
     res2 = eng2.run()
     assert np.abs(res.bodies["b"][2]).max() < \
@@ -255,10 +259,10 @@ def test_nonconforming_fracture_breaks_per_side():
 
 def test_nonconforming_resume_roundtrip():
     """state_dict/load_state round-trips per-side bond masks."""
-    eng, _ = _two_body_engine(kernel="jnp", tensile=1e-3, nsteps=40)
+    eng, _ = _two_body_engine(tensile=1e-3, nsteps=40)
     eng.run()
     state = eng.state_dict()
-    eng2, _ = _two_body_engine(kernel="jnp", tensile=1e-3, nsteps=40)
+    eng2, _ = _two_body_engine(tensile=1e-3, nsteps=40)
     eng2.load_state(jax.tree.map(np.asarray, state))
     for side in ("a", "b"):
         np.testing.assert_array_equal(

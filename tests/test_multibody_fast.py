@@ -1,9 +1,10 @@
-"""Multi-body fast paths: raw sweeps + post-fixup borders/contacts.
+"""Multi-body compositions: raw sweeps + post-fixup borders/contacts.
 
-Round-1 verdict weak #4: the multi-body engine was jnp-only. The fast path
-runs each body's sweep through the per-sweep Pallas kernel (or its
-shard_map form on a device mesh) and applies borders/contacts as exact
-post-sweep slab fixups — these tests pin the equivalence.
+On a device mesh the multi-body engine runs each body's sweep through the
+shard_map halo stage and applies borders/contacts as exact post-sweep slab
+fixups; the opt-in canonical layout runs each body's whole step and fixes
+the contact face rows afterwards. These tests pin both against the
+in-stage solve.
 """
 
 import dataclasses
@@ -69,27 +70,16 @@ def test_post_fixup_equals_in_stage_contact(kind, mu, rng):
     np.testing.assert_allclose(np.asarray(gb[0]), np.asarray(wb[0]))
 
 
-def _interpret_pallas(monkeypatch):
-    import gcm_tpu.ops.pallas_stage as ps
+@pytest.mark.parametrize("shape", [(8, 1), (4, 2), (2, 4)])
+def test_multibody_engine_sharded_matches_unsharded(shape):
+    """Sharded multi-body contact (shard_map raw sweeps + GSPMD slab
+    fixups) == unsharded in-stage engine, on the fracture scenario."""
+    from gcm_tpu.parallel.sharding import domain_mesh
 
-    orig = ps.pl.pallas_call
-
-    def wrapped(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(ps.pl, "pallas_call", wrapped)
-
-
-def test_multibody_engine_pallas_matches_jnp(monkeypatch):
-    """MultiBodyEngine on the pallas fast path == jnp engine on the
-    fracture scenario (BASELINE config 4)."""
-    _interpret_pallas(monkeypatch)
-    bodies, contacts = elastic3d_contact(n=12, nsteps=8)
+    bodies, contacts = elastic3d_contact(n=16, nsteps=6)
     res_ref = MultiBodyEngine(bodies, contacts).run()
-    bodies_p = {k: dataclasses.replace(t, kernel="pallas")
-                for k, t in bodies.items()}
-    eng = MultiBodyEngine(bodies_p, contacts)
+    mesh = domain_mesh(3, devices=jax.devices("cpu")[:8], shape=shape)
+    eng = MultiBodyEngine(bodies, contacts, mesh=mesh)
     assert eng._raw_stage is not None
     res = eng.run()
     for k in res.bodies:
@@ -99,18 +89,20 @@ def test_multibody_engine_pallas_matches_jnp(monkeypatch):
         np.testing.assert_array_equal(res.bonded[ci], res_ref.bonded[ci])
 
 
-def test_multibody_engine_sharded_pallas_matches_unsharded(monkeypatch):
-    """Sharded multi-body contact on the pallas path (shard_map raw sweeps
-    + GSPMD slab fixups) == unsharded jnp engine."""
-    _interpret_pallas(monkeypatch)
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("shape", [(8, 1), (4, 2), (2, 4)])
+def test_multibody_engine_sharded_orders(shape, order):
+    """The sharded multi-body path at the other stencil orders (halo depth
+    1 and 2), against the unsharded in-stage engine."""
     from gcm_tpu.parallel.sharding import domain_mesh
 
-    bodies, contacts = elastic3d_contact(n=16, nsteps=6)
+    bodies, contacts = elastic3d_contact(n=16, nsteps=4)
+    bodies = {k: dataclasses.replace(t, order=order)
+              for k, t in bodies.items()}
     res_ref = MultiBodyEngine(bodies, contacts).run()
-    bodies_p = {k: dataclasses.replace(t, kernel="pallas")
-                for k, t in bodies.items()}
-    mesh = domain_mesh(3, devices=jax.devices("cpu")[:8], shape=(4, 2))
-    eng = MultiBodyEngine(bodies_p, contacts, mesh=mesh)
+    mesh = domain_mesh(3, devices=jax.devices("cpu")[:8], shape=shape)
+    eng = MultiBodyEngine(bodies, contacts, mesh=mesh)
+    assert eng._raw_stage is not None
     res = eng.run()
     for k in res.bodies:
         scale = np.abs(res_ref.bodies[k]).max() + 1e-30
@@ -133,7 +125,7 @@ def _full_faces(contacts):
 def _jnp_fused_body(model, mats, dt, hs, borders, contacts):
     """A 'fused body step' stand-in built from the jnp semantics of record:
     one full step per body, non-contact borders in place, raw clamp at
-    full-contact faces — exactly what the fused kernel computes."""
+    full-contact faces — exactly what the engine's full-step body computes."""
     from gcm_tpu.solver.gcm import step as jnp_step
 
     faces = _full_faces(contacts)
@@ -282,54 +274,17 @@ def test_fused_contacts_eligibility():
     assert not fused_contacts_ok(model, shapes, ok, 2, ncmaps={0: object()})
 
 
-def test_multibody_engine_fused_matches_jnp(monkeypatch):
-    """MultiBodyEngine on the fused full-step path (one HBM pass per body,
-    contacts as face-slab fixups) == jnp engine on the fracture scenario
-    (BASELINE config 4; VERDICT r3 item 2)."""
-    import gcm_tpu.ops.pallas_fused as pf
-
-    orig = pf.pl.pallas_call
-
-    def wrapped(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pf.pl, "pallas_call", wrapped)
-
-    bodies, contacts = elastic3d_contact(n=12, nsteps=8)
-    res_ref = MultiBodyEngine(bodies, contacts).run()
-    bodies_f = {k: dataclasses.replace(t, kernel="pallas_fused")
-                for k, t in bodies.items()}
-    eng = MultiBodyEngine(bodies_f, contacts)
-    assert eng._fused_multi is not None, "fused multi path must be selected"
-    res = eng.run()
-    for k in res.bodies:
-        scale = np.abs(res_ref.bodies[k]).max() + 1e-30
-        assert np.abs(res.bodies[k] - res_ref.bodies[k]).max() / scale < 2e-5
-    for ci in res.bonded:
-        np.testing.assert_array_equal(res.bonded[ci], res_ref.bonded[ci])
-
-
-def test_canonical_layout_matches_matched_order_reference(monkeypatch):
+def test_canonical_layout_matches_matched_order_reference():
     """MultiBodyEngine(canonical_layout=True) stores state with the
     contact axis FIRST (the z-interface otherwise pays full-field lane
     traffic in every fixup) and steps with the permuted model; it must be
     exact against the jnp step_multi run with the matching physical axis
     order (z,x,y)/(y,x,z)."""
-    import gcm_tpu.ops.pallas_fused as pf
     from gcm_tpu.solver.multi import step_multi as sm
 
-    orig = pf.pl.pallas_call
-
-    def wrapped(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pf.pl, "pallas_call", wrapped)
 
     bodies, contacts = elastic3d_contact(n=12, nsteps=4)
-    bodies_f = {k: dataclasses.replace(t, kernel="pallas_fused")
-                for k, t in bodies.items()}
+    bodies_f = dict(bodies)
     eng = MultiBodyEngine(bodies_f, contacts, canonical_layout=True)
     assert eng._perm == (2, 0, 1)
     res = eng.run()
@@ -352,25 +307,15 @@ def test_canonical_layout_matches_matched_order_reference(monkeypatch):
                                       np.asarray(bonded[ci]))
 
 
-def test_canonical_layout_resume_and_outputs(tmp_path, monkeypatch):
+def test_canonical_layout_resume_and_outputs(tmp_path):
     """Checkpoints and run outputs of a canonical-layout run stay in the
     TASK layout: resume into a non-canonical engine reproduces physics of
     the same splitting order; state_dict round-trips through the boundary
     unpermutation."""
-    import gcm_tpu.ops.pallas_fused as pf
-
-    orig = pf.pl.pallas_call
-
-    def wrapped(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pf.pl, "pallas_call", wrapped)
     from gcm_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
 
     bodies, contacts = elastic3d_contact(n=12, nsteps=6)
-    bodies_f = {k: dataclasses.replace(t, kernel="pallas_fused")
-                for k, t in bodies.items()}
+    bodies_f = dict(bodies)
 
     full = MultiBodyEngine(bodies_f, contacts, canonical_layout=True)
     rfull = full.run()
@@ -388,40 +333,7 @@ def test_canonical_layout_resume_and_outputs(tmp_path, monkeypatch):
         assert np.abs(rres.bodies[k] - rfull.bodies[k]).max() / scale < 1e-5
 
 
-def test_multibody_engine_sharded_fused_matches_unsharded(monkeypatch):
-    """Sharded multi-body on the FUSED composition (fused spmd step per
-    body + GSPMD contact fixups) == unsharded jnp engine — the multi-chip
-    form of VERDICT r3 item 2 (contact axis is the unsharded lane axis)."""
-    import gcm_tpu.ops.pallas_fused as pfu
-    import gcm_tpu.parallel.fused_spmd as pfs
-
-    for mod in (pfu, pfs):
-        orig = mod.pl.pallas_call
-
-        def wrapped(*a, _orig=orig, **k):
-            k.setdefault("interpret", True)
-            return _orig(*a, **k)
-
-        monkeypatch.setattr(mod.pl, "pallas_call", wrapped)
-
-    from gcm_tpu.parallel.sharding import domain_mesh
-
-    bodies, contacts = elastic3d_contact(n=16, nsteps=6)
-    res_ref = MultiBodyEngine(bodies, contacts).run()
-    bodies_f = {k: dataclasses.replace(t, kernel="pallas_fused")
-                for k, t in bodies.items()}
-    mesh = domain_mesh(3, devices=jax.devices("cpu")[:8], shape=(4, 2))
-    eng = MultiBodyEngine(bodies_f, contacts, mesh=mesh)
-    assert eng._fused_multi is not None, "sharded fused composition missing"
-    res = eng.run()
-    for k in res.bodies:
-        scale = np.abs(res_ref.bodies[k]).max() + 1e-30
-        assert np.abs(res.bodies[k] - res_ref.bodies[k]).max() / scale < 2e-5
-    for ci in res.bonded:
-        np.testing.assert_array_equal(res.bonded[ci], res_ref.bonded[ci])
-
-
-def test_canonical_layout_under_device_mesh(monkeypatch):
+def test_canonical_layout_under_device_mesh():
     """Canonical + SHARDED (VERDICT r4 weak #2): the contact axis leads
     (whole on every shard), the 1-axis mesh shards the middle axis (the
     engine rebuilds it as a ('sy',)-mesh), lane stays unsharded — and the
@@ -429,28 +341,17 @@ def test_canonical_layout_under_device_mesh(monkeypatch):
     import jax
     from jax.sharding import Mesh
 
-    import gcm_tpu.ops.pallas_fused as pf
-    import gcm_tpu.parallel.fused_spmd as pfs
     from gcm_tpu.solver.multi import step_multi as sm
 
-    for mod in (pf, pfs):
-        orig = mod.pl.pallas_call
-
-        def wrapped(*a, _orig=orig, **k):
-            k.setdefault("interpret", True)
-            return _orig(*a, **k)
-
-        monkeypatch.setattr(mod.pl, "pallas_call", wrapped)
 
     bodies, contacts = elastic3d_contact(n=12, nsteps=4)
-    bodies_f = {k: dataclasses.replace(t, kernel="pallas_fused")
-                for k, t in bodies.items()}
+    bodies_f = dict(bodies)
     mesh = Mesh(np.asarray(jax.devices("cpu")[:4]), ("sx",))
     eng = MultiBodyEngine(bodies_f, contacts, mesh=mesh,
                           canonical_layout=True)
     assert eng._perm == (2, 0, 1)
     assert eng.mesh.axis_names == ("sy",), eng.mesh
-    assert eng._fused_multi is not None
+    assert eng._full_step is not None
     res = eng.run()
 
     ref = MultiBodyEngine(bodies, contacts)      # jnp engine for setup
@@ -471,7 +372,7 @@ def test_canonical_layout_under_device_mesh(monkeypatch):
                                       np.asarray(bonded[ci]))
 
 
-def test_canonical_under_mesh_span_contact(monkeypatch):
+def test_canonical_under_mesh_span_contact():
     """A PARTIAL-OVERLAP (lo/span) contact under canonical + mesh: the
     permuted transverse storage order must stay task-ascending — an
     inverted order would apply lo/span to the wrong transverse axes
@@ -480,18 +381,8 @@ def test_canonical_under_mesh_span_contact(monkeypatch):
     import jax
     from jax.sharding import Mesh
 
-    import gcm_tpu.ops.pallas_fused as pf
-    import gcm_tpu.parallel.fused_spmd as pfs
     from gcm_tpu.solver.multi import step_multi as sm
 
-    for mod in (pf, pfs):
-        orig = mod.pl.pallas_call
-
-        def wrapped(*a, _orig=orig, **k):
-            k.setdefault("interpret", True)
-            return _orig(*a, **k)
-
-        monkeypatch.setattr(mod.pl, "pallas_call", wrapped)
 
     bodies, _ = elastic3d_contact(n=12, nsteps=4)
     # asymmetric per-transverse-axis lo/span so a transposed mapping
@@ -499,15 +390,14 @@ def test_canonical_under_mesh_span_contact(monkeypatch):
     contacts = (ContactSpec("upper", "lower", axis=2, kind="bonded",
                             tensile_strength=1.0e5, broken_kind="free",
                             lo_a=(2, 1), lo_b=(1, 0), span=(8, 9)),)
-    bodies_f = {k: dataclasses.replace(t, kernel="pallas_fused")
-                for k, t in bodies.items()}
+    bodies_f = dict(bodies)
     mesh = Mesh(np.asarray(jax.devices("cpu")[:4]), ("sx",))
     eng = MultiBodyEngine(bodies_f, contacts, mesh=mesh,
                           canonical_layout=True)
     assert eng._perm is not None
     # the invariant under test: transverse part of the perm is ascending
     assert list(eng._perm[1:]) == sorted(eng._perm[1:])
-    assert eng._fused_multi is not None
+    assert eng._full_step is not None
     res = eng.run()
 
     ref = MultiBodyEngine(bodies, contacts)      # jnp engine for setup
@@ -528,44 +418,17 @@ def test_canonical_under_mesh_span_contact(monkeypatch):
                                       np.asarray(bonded[ci]))
 
 
-def test_canonical_hint_when_eligible(caplog, monkeypatch):
-    """Eligible-but-unrequested canonical cases must surface a one-line
-    perf hint instead of silently paying the fixup tax (VERDICT r4 weak
-    #5); requesting it silences it, and it only fires on TPU backends
-    (the quoted speedups are v5e measurements — code-review r5)."""
-    import logging
-
-    import jax
-
+def test_canonical_layout_is_opt_in():
+    """The canonical layout engages only when requested: a default engine
+    keeps task layout and the in-stage solve on an eligible setup."""
     bodies, contacts = elastic3d_contact(n=12, nsteps=2)
-    bodies_f = {k: dataclasses.replace(t, kernel="pallas_fused")
-                for k, t in bodies.items()}
-    # CPU backend: small meshes are fused-eligible regardless of lane
-    # alignment, so no hint
-    with caplog.at_level(logging.WARNING, logger="gcm_tpu.perf"):
-        eng = MultiBodyEngine(bodies_f, contacts)
-    assert eng._perm is None
-    assert not any("canonical" in r.message for r in caplog.records)
-    # simulated TPU backend on a lane-aligned shape: the hint fires
-    import gcm_tpu.engine_multi as em
-
-    monkeypatch.setattr(em.jax, "default_backend", lambda: "tpu")
-    bodies128, contacts128 = elastic3d_contact(n=128, nsteps=2)
-    bodies128 = {k: dataclasses.replace(t, kernel="pallas_fused")
-                 for k, t in bodies128.items()}
-    with caplog.at_level(logging.WARNING, logger="gcm_tpu.perf"):
-        eng = MultiBodyEngine(bodies128, contacts128)
-    assert eng._perm is None
-    assert any("canonical" in r.message for r in caplog.records)
-    caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="gcm_tpu.perf"):
-        eng2 = MultiBodyEngine(bodies128, contacts128,
-                               canonical_layout=True)
-    assert eng2._perm is not None
-    assert not any("canonical" in r.message for r in caplog.records)
+    eng = MultiBodyEngine(bodies, contacts)
+    assert eng._perm is None and eng._full_step is None
+    eng2 = MultiBodyEngine(bodies, contacts, canonical_layout=True)
+    assert eng2._perm == (2, 0, 1) and eng2._full_step is not None
 
 
-def test_canonical_conformity_uses_original_axes(monkeypatch):
+def test_canonical_conformity_uses_original_axes():
     """code-review r5: conformity/interface-map construction must use the
     ORIGINAL (task-layout) contact axes, not the permuted ones.
 
@@ -575,18 +438,10 @@ def test_canonical_conformity_uses_original_axes(monkeypatch):
     extents and built garbage maps).  Case B — genuinely non-conforming
     transverse spacing: canonical must refuse and the maps must be built
     about the TRUE axis."""
-    import gcm_tpu.ops.pallas_fused as pf
     from gcm_tpu.materials import IsotropicMaterial
     from gcm_tpu.solver.contact import ContactSpec
     from gcm_tpu.task import BorderSpec, GridSpec, Task, TimeSpec
 
-    orig = pf.pl.pallas_call
-
-    def wrapped(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(pf.pl, "pallas_call", wrapped)
 
     rock = IsotropicMaterial.from_speeds(rho=2500.0, cp=4000.0, cs=2300.0)
 
@@ -597,8 +452,7 @@ def test_canonical_conformity_uses_original_axes(monkeypatch):
             default_material=rock,
             borders={(a, s): BorderSpec("absorbing")
                      for a in range(3) for s in (0, 1)},
-            time=TimeSpec(cfl=0.8, nsteps=2), order=2,
-            kernel="pallas_fused")
+            time=TimeSpec(cfl=0.8, nsteps=2), order=2)
 
     # Case A: nz_a != nz_b, transversally identical -> conforming
     bodies = {"up": body(8), "lo": body(6)}
@@ -620,7 +474,7 @@ def test_canonical_conformity_uses_original_axes(monkeypatch):
 
 
 @pytest.mark.parametrize("kind,mu", [("slip", 0.0), ("friction", 0.4)])
-def test_canonical_layout_slip_friction_contact(kind, mu, monkeypatch):
+def test_canonical_layout_slip_friction_contact(kind, mu):
     """Slip/friction contacts under the canonical permuted layout: the
     interface normal must be identified by the PHYSICAL stage axis, not
     the permuted array axis — the array-axis comparison flagged a shear
@@ -629,16 +483,8 @@ def test_canonical_layout_slip_friction_contact(kind, mu, monkeypatch):
     bonded contacts hid it (code-review r5)."""
     import jax
 
-    import gcm_tpu.ops.pallas_fused as pf
     from gcm_tpu.solver.multi import step_multi as sm
 
-    orig = pf.pl.pallas_call
-
-    def wrapped(*a, _orig=orig, **k):
-        k.setdefault("interpret", True)
-        return _orig(*a, **k)
-
-    monkeypatch.setattr(pf.pl, "pallas_call", wrapped)
 
     # enough steps for the explosion to actually cross the interface —
     # at 4 steps the transmitted field is ~0 and any normal/shear mixup
@@ -648,11 +494,10 @@ def test_canonical_layout_slip_friction_contact(kind, mu, monkeypatch):
         dataclasses.replace(c, kind=kind, friction_mu=mu,
                             tensile_strength=None, broken_kind="free")
         for c in base_contacts)
-    bodies_f = {k: dataclasses.replace(t, kernel="pallas_fused")
-                for k, t in bodies.items()}
+    bodies_f = dict(bodies)
     eng = MultiBodyEngine(bodies_f, contacts, canonical_layout=True)
     assert eng._perm == (2, 0, 1)
-    assert eng._fused_multi is not None
+    assert eng._full_step is not None
     res = eng.run()
 
     ref = MultiBodyEngine(bodies, contacts)      # jnp engine for setup

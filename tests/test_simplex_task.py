@@ -356,7 +356,7 @@ def test_checkpoint_node_numbering_fingerprint(tmp_path):
     assert state["points_md5"] is not None
     save_checkpoint(str(tmp_path / "ck"), 2, state)
 
-    # same numbering: round-trips (including through orbax)
+    # same numbering: round-trips (including through a checkpoint)
     eng_same = SimplexEngine(g_old, "elastic3d", rock, dtype=jnp.float64)
     eng_same.load_state(
         restore_checkpoint(str(tmp_path / "ck"), eng_same.state_dict()))

@@ -1,8 +1,8 @@
 """Explicit shard_map + halo-exchange path vs the global program.
 
-Validates gcm_tpu.parallel.halo: ppermute halo exchange, border fixup
-gating by axis_index, and the pallas-in-shard_map composition (interpret
-mode) — the multi-chip production path (SURVEY.md §5.8).
+Validates gcm_tpu.parallel.halo: ppermute halo exchange and border fixup
+gating by axis_index — the engines' mesh path (SURVEY.md §5.8) — on 8
+virtual CPU devices.
 """
 
 import jax
@@ -72,29 +72,45 @@ def test_spmd_step_matches_global(order, rng):
     assert err.max() < 1e-12, f"normalized err {err}"
 
 
-def test_spmd_pallas_step_matches_global(rng, monkeypatch):
-    """Pallas sweeps inside shard_map (interpret mode) == global jnp step."""
-    import gcm_tpu.ops.pallas_stage as ps
+MESHES = [(8, 1), (4, 2), (2, 4)]
 
-    orig = ps.pl.pallas_call
 
-    def wrapped(*a, **k):
-        k.setdefault("interpret", True)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(ps.pl, "pallas_call", wrapped)
-
-    shape = (32, 16, 128)
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+@pytest.mark.parametrize("mesh_shape", MESHES)
+def test_spmd_step_mesh_shapes(mesh_shape, order, rng):
+    """Halo step over every 8-device mesh layout and order: shards as thin
+    as one stencil (8 planes along x on (8, 1), 4 along y on (2, 4))."""
+    shape = (32, 16, 6)
     model, u, mat, dt = _problem(rng, shape)
-    u = u.astype(jnp.float32)
-    mat = jax.tree.map(lambda a: a.astype(jnp.float32), mat)
-    h = (1.0, 1.0, 1.0)
-    mesh = domain_mesh(3)
-    spmd_step = make_spmd_step(model, mesh, dt, h, 2, BORDERS,
-                               use_pallas=True, pallas_cx=4)
+    h = (1.0, 1.2, 0.9)
+    mesh = domain_mesh(3, devices=jax.devices("cpu")[:8], shape=mesh_shape)
+    spmd_step = make_spmd_step(model, mesh, dt, h, order, BORDERS)
     u_s, mat_s = shard_state(u, mat, mesh)
-    got = np.asarray(spmd_step(u_s, mat_s))
-    want = np.asarray(step(model, u, mat, dt, h, 2, BORDERS))
+    got, want = u_s, u
+    for axes in ((0, 1, 2), (2, 1, 0)):
+        got = spmd_step(got, mat_s, axes)
+        want = step(model, want, mat, dt, h, order, BORDERS, axes)
+    got, want = np.asarray(got), np.asarray(want)
     scale = np.abs(want).reshape(model.ncomp, -1).max(1) + 1e-30
     err = np.abs(got - want).reshape(model.ncomp, -1).max(1) / scale
-    assert err.max() < 2e-6, f"normalized err {err}"
+    assert err.max() < 1e-12, f"normalized err {err}"
+
+
+@pytest.mark.parametrize("mesh_shape", MESHES)
+def test_engine_mesh_matches_unsharded(mesh_shape):
+    """Engine(mesh=...) on the main-path scenario (source, detectors, free
+    top) == the unsharded engine."""
+    import dataclasses
+
+    from gcm_tpu.engine import Engine
+    from gcm_tpu.scenarios import get_scenario
+
+    task = dataclasses.replace(
+        get_scenario("elastic3d_layered", n=16, nsteps=6), kernel="jnp")
+    mesh = domain_mesh(3, devices=jax.devices("cpu")[:8], shape=mesh_shape)
+    sharded = Engine(task, mesh=mesh, dtype=jnp.float64).run()
+    one = Engine(task, dtype=jnp.float64).run()
+    scale = np.abs(one.u).max()
+    assert np.abs(sharded.u - one.u).max() <= 1e-12 * scale
+    np.testing.assert_allclose(sharded.traces, one.traces, rtol=1e-10,
+                               atol=1e-12 * np.abs(one.traces).max())
