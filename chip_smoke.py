@@ -87,7 +87,17 @@ def phase_device():
     return devs
 
 
-def phase_main_path(n: int):
+def expect_kernel(name: str, chosen: str, devs) -> None:
+    """On a card the kernel library is built for (every device sm_90) the
+    engine must take the Hopper kernel; elsewhere the jnp path."""
+    from gcm_tpu.ops.hopper_step import is_hopper
+
+    want = "hopper" if all(is_hopper(d) for d in devs) else "jnp"
+    if chosen != want:
+        raise AssertionError(f"{name}: engine chose {chosen}, expected {want}")
+
+
+def phase_main_path(n: int, devs):
     from gcm_tpu import cli
     from gcm_tpu.engine import Engine
     from gcm_tpu.scenarios import get_scenario
@@ -110,6 +120,7 @@ def phase_main_path(n: int):
     tr = np.abs(first.traces).max()
     if not tr > 0:
         raise AssertionError("detector trace is zero")
+    expect_kernel("main path", res.kernel, devs)
     log(f"main path elastic3d_layered n={n} shape {eng.task.grid.shape}: "
         f"kernel={res.kernel} setup {setup:.1f} s, compile "
         f"{first.wall_seconds - res.wall_seconds:.1f} s, steady "
@@ -118,7 +129,7 @@ def phase_main_path(n: int):
     return res.kernel
 
 
-def phase_parity(n: int):
+def phase_parity(n: int, devs):
     import jax
     import jax.numpy as jnp
 
@@ -139,8 +150,9 @@ def phase_parity(n: int):
 
     big = get_scenario("elastic3d_layered", n=n, nsteps=20)
     eng_h = Engine(big)
+    expect_kernel("parity", eng_h.kernel, devs)
     if eng_h.kernel != "hopper":
-        log(f"engine chose {eng_h.kernel}: no Hopper kernel parity")
+        log(f"{devs[0].device_kind} is no Hopper GPU: no kernel parity")
         return
     # one step of each axis order on random fields, free + absorbing faces
     model = get_model("elastic3d")
@@ -315,9 +327,9 @@ def main() -> int:
     if args.four_cards:
         phase_four_cards(args.n)
     else:
-        kernel = phase_main_path(args.n)
+        kernel = phase_main_path(args.n, devs)
         log(f"main path compute path: {kernel}")
-        phase_parity(args.n)
+        phase_parity(args.n, devs)
         phase_gpu_tests()
         phase_entry_points()
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -33,19 +33,13 @@
 
 namespace gcm {
 
-#ifndef GCM_MIN_BLOCKS
-#define GCM_MIN_BLOCKS 1
-#endif
-#ifndef GCM_TARGET_BLOCKS
-#define GCM_TARGET_BLOCKS 1056
-#endif
-
 constexpr int TY = 8;          // haloed tile extent along y
 constexpr int TZ = 32;         // haloed tile extent along z (one warp)
 constexpr int NT = TY * TZ;    // threads per block
 constexpr int NC = 9;          // state components
 constexpr int XCHUNK = 64;     // most x planes per block
 constexpr int MIN_XCHUNK = 8;  // fewest x planes per block
+constexpr int BLOCKS_PER_SM = 8;  // blocks aimed at per multiprocessor
 
 // border kinds, as gcm_tpu.ops.hopper_step.BORDER_CODES
 constexpr int B_NONE = 0, B_ABSORBING = 1, B_FREE = 2, B_FORCE = 3,
@@ -125,7 +119,7 @@ __device__ __forceinline__ int clampi(int i, int n) {
 struct Mat { float cp, cs, rho, kap; };
 
 template <bool FWD>
-__global__ void __launch_bounds__(NT, GCM_MIN_BLOCKS)
+__global__ void __launch_bounds__(NT, 1)
 step_kernel(const float* __restrict__ u, const float* __restrict__ cp,
             const float* __restrict__ cs, const float* __restrict__ rho,
             const float* __restrict__ kap, float* __restrict__ out,
@@ -262,12 +256,14 @@ step_kernel(const float* __restrict__ u, const float* __restrict__ cp,
   }
 }
 
-// x planes per block: short chunks when the (y, z) tiles alone give too
-// few blocks to fill the card (each chunk re-reads, or in order (2,1,0)
-// re-sweeps, two planes), at most XCHUNK.
-inline int pick_xchunk(int nx, int ny, int nz) {
+// x planes per block: short chunks when the (y, z) tiles alone give fewer
+// than BLOCKS_PER_SM blocks for each of the card's `sms` multiprocessors
+// (1056 blocks on an H100 SXM's 132; each chunk re-reads, or in order
+// (2,1,0) re-sweeps, two planes), at most XCHUNK.
+inline int pick_xchunk(int nx, int ny, int nz, int sms) {
   const long tiles = (long)((nz + TZ - 3) / (TZ - 2)) * ((ny + TY - 3) / (TY - 2));
-  const long chunks = (GCM_TARGET_BLOCKS + tiles - 1) / tiles;
+  const long target = (long)BLOCKS_PER_SM * sms;
+  const long chunks = (target + tiles - 1) / tiles;
   long xc = (nx + chunks - 1) / chunks;
   xc = xc < MIN_XCHUNK ? MIN_XCHUNK : (xc > XCHUNK ? XCHUNK : xc);
   return (int)xc;
@@ -330,15 +326,15 @@ extern "C" int gcm_step_emulated(const float* u, const float* cp,
   return gcm::launch(u, cp, cs, rho, kap, out, P, reverse != 0);
 }
 
-extern "C" int gcm_pick_xchunk(int nx, int ny, int nz) {
-  return gcm::pick_xchunk(nx, ny, nz);
+extern "C" int gcm_pick_xchunk(int nx, int ny, int nz, int sms) {
+  return gcm::pick_xchunk(nx, ny, nz, sms);
 }
 
 #else
 
 namespace ffi = xla::ffi;
 
-static ffi::Error GcmStepImpl(cudaStream_t stream,
+static ffi::Error GcmStepImpl(cudaStream_t stream, int32_t device,
                               ffi::Buffer<ffi::F32> u,
                               ffi::Buffer<ffi::F32> cp,
                               ffi::Buffer<ffi::F32> cs,
@@ -355,11 +351,15 @@ static ffi::Error GcmStepImpl(cudaStream_t stream,
       m[1] != d[2] || m[2] != d[3])
     return ffi::Error::InvalidArgument(
         "gcm_step: expected u[9,nx,ny,nz] and materials [nx,ny,nz]");
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    return ffi::Error::Internal("gcm_step: no multiprocessor count");
   gcm::Params P;
   if (!gcm::make_params((int)d[1], (int)d[2], (int)d[3], dtoh.begin(),
                         (int)dtoh.size(), kinds.begin(), (int)kinds.size(),
                         vals.begin(), (int)vals.size(),
-                        gcm::pick_xchunk((int)d[1], (int)d[2], (int)d[3]),
+                        gcm::pick_xchunk((int)d[1], (int)d[2], (int)d[3], sms),
                         &P))
     return ffi::Error::InvalidArgument("gcm_step: bad attributes");
   int err = gcm::launch(u.typed_data(), cp.typed_data(), cs.typed_data(),
@@ -375,6 +375,7 @@ XLA_FFI_DEFINE_HANDLER_SYMBOL(
     GcmStep, GcmStepImpl,
     ffi::Ffi::Bind()
         .Ctx<ffi::PlatformStream<cudaStream_t>>()
+        .Ctx<ffi::DeviceOrdinal>()
         .Arg<ffi::Buffer<ffi::F32>>()
         .Arg<ffi::Buffer<ffi::F32>>()
         .Arg<ffi::Buffer<ffi::F32>>()

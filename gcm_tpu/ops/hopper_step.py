@@ -9,7 +9,8 @@ device memory (9 state + 4 material floats in, 9 out per point).
 Scope, all of it checked by :func:`eligible`: the 3D isotropic elastic
 model, ``MaterialFields``, float32, order 2, axis orders (0,1,2) and
 (2,1,0), characteristic borders of every kind, no device mesh, compute on a
-GPU. Sources and correctors stay after the step in jnp, as on the jnp path.
+Hopper GPU (compute capability 9.0, the one the library is built for).
+Sources and correctors stay after the step in jnp, as on the jnp path.
 
 The shared library is built from the committed source into ``build/`` at
 the repository root (git-ignored) at first use, or ahead of time with::
@@ -70,18 +71,25 @@ def build_command(out: str) -> List[str]:
 
 
 def build(force: bool = False) -> str:
-    """Compile the kernel library if needed; returns its path. A failed
-    build raises with the compiler's output."""
+    """Compile the kernel library if needed; returns its path. A missing
+    compiler or a failed build raises."""
     out = library_path()
     if os.path.exists(out) and not force:
         return out
+    nvcc = nvcc_path()
+    if not os.access(nvcc, os.X_OK):
+        raise RuntimeError(
+            f"the Hopper step kernel is built with nvcc, which is neither on "
+            f"PATH nor at {nvcc}: install the CUDA toolkit, or run with "
+            f"Task.kernel='jnp' (CLI: --kernel jnp)")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     proc = subprocess.run(build_command(tmp), capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"building {os.path.basename(SOURCE)} failed "
-            f"(rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            f"(rc {proc.returncode}; Task.kernel='jnp' avoids the kernel):"
+            f"\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     with open(out + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
@@ -104,14 +112,22 @@ def register() -> None:
     _registered = True
 
 
-def eligible(model, mat, order: int, dtype, borders, platform: str,
+def is_hopper(device) -> bool:
+    """Whether ``device`` is a GPU the library's sm_90a code runs on
+    (compute capability 9.0); any other GPU has no kernel image for it."""
+    return (device.platform == "gpu"
+            and getattr(device, "compute_capability", None) == "9.0")
+
+
+def eligible(model, mat, order: int, dtype, borders, device,
              mesh=None, perm=None) -> bool:
-    """Whether the kernel serves this step: see the module docstring."""
+    """Whether the kernel serves this step on ``device``: see the module
+    docstring."""
     import jax.numpy as jnp
 
     from gcm_tpu.materials import MaterialFields
 
-    return (platform == "gpu" and mesh is None and perm is None
+    return (is_hopper(device) and mesh is None and perm is None
             and model.name == "elastic3d" and order == 2
             and isinstance(mat, MaterialFields)
             and jnp.dtype(dtype) == jnp.float32
@@ -149,14 +165,15 @@ def hopper_step(u, mat, dt: float, h: Sequence[float], borders,
     """One full step ``u[9, nx, ny, nz] -> u`` through the kernel."""
     import jax
 
-    from gcm_tpu.utils.backend import compute_platform
+    from gcm_tpu.utils.backend import compute_device
 
-    platform = compute_platform()
-    if platform != "gpu":
+    device = compute_device()
+    if not is_hopper(device):
         raise RuntimeError(
-            f"the Hopper step kernel runs only on a CUDA GPU, not on "
-            f"{platform!r}; use Task.kernel='jnp' (or 'auto', which picks "
-            f"the jnp sweeps there)")
+            f"the Hopper step kernel runs only on a CUDA GPU of compute "
+            f"capability 9.0, not on {device.platform!r} "
+            f"({device.device_kind}); use Task.kernel='jnp' (or 'auto', "
+            f"which picks the jnp sweeps there)")
     register()
     call = jax.ffi.ffi_call(TARGET, jax.ShapeDtypeStruct(u.shape, u.dtype))
     return call(u, mat.cp, mat.cs, mat.rho, mat.kappa,

@@ -95,6 +95,9 @@ def test_cli_run_sets_up_cache(monkeypatch, tmp_path):
 
 
 def test_compute_platform_follows_default_device():
-    assert backend.compute_platform() == "cpu"
-    with jax.default_device(jax.devices("cpu")[0]):
-        assert backend.compute_platform() == "cpu"
+    cpu = jax.devices("cpu")
+    assert backend.compute_device().platform == "cpu"
+    with jax.default_device(cpu[1]):
+        assert backend.compute_device() == cpu[1]
+    with jax.default_device("cpu"):
+        assert backend.compute_device() == cpu[0]

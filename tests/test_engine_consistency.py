@@ -151,6 +151,7 @@ def test_kernel_auto_resolution(monkeypatch):
     compute lands on a GPU and the task qualifies, and to jnp elsewhere;
     kernel='jnp' pins the jnp path everywhere."""
     import dataclasses
+    from types import SimpleNamespace
 
     import jax.numpy as jnp
 
@@ -164,7 +165,9 @@ def test_kernel_auto_resolution(monkeypatch):
     mat = task.material_fields(xp=jnp, dtype=jnp.float32)
     # this suite runs on CPU -> auto is the semantics-of-record path
     assert select_kernel(task, model, mat, jnp.float32) == "jnp"
-    monkeypatch.setattr(eng_mod, "compute_platform", lambda mesh=None: "gpu")
+    monkeypatch.setattr(eng_mod, "compute_device",
+                        lambda mesh=None: SimpleNamespace(
+                            platform="gpu", compute_capability="9.0"))
     assert select_kernel(task, model, mat, jnp.float32) == "hopper"
     pinned = dataclasses.replace(task, kernel="jnp")
     assert select_kernel(pinned, model, mat, jnp.float32) == "jnp"

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,19 @@ EMU_HEADER = os.path.join(HERE, "cuda_emulate.h")
 KINDS = ("absorbing", "free", "fixed_force", "fixed_velocity")
 AXES = ((0, 1, 2), (2, 1, 0))
 TOL = 1e-5          # max|d| / max|u|, float32
+H100_SMS = 132      # multiprocessors of an H100 SXM
+
+
+def _gpu(kind, cc):
+    """A stand-in for a CUDA ``jax.Device``."""
+    return SimpleNamespace(platform="gpu", device_kind=kind,
+                           compute_capability=cc)
+
+
+H100 = _gpu("NVIDIA H100 80GB HBM3", "9.0")
+OTHER_GPUS = [_gpu("NVIDIA A100-SXM4-80GB", "8.0"),
+              _gpu("NVIDIA L40S", "8.9"),
+              _gpu("NVIDIA B200", "10.0")]
 
 
 # ------------------------------------------------------------ fixtures
@@ -91,7 +105,7 @@ def emulated():
     lib.gcm_step_emulated.argtypes = [fp] * 6 + [c_int] * 3 + [fp, ip, fp,
                                                                c_int, c_int]
     lib.gcm_step_emulated.restype = c_int
-    lib.gcm_pick_xchunk.argtypes = [c_int] * 3
+    lib.gcm_pick_xchunk.argtypes = [c_int] * 4
     lib.gcm_pick_xchunk.restype = c_int
     return lib
 
@@ -141,19 +155,22 @@ def test_emulated_kernel_layered_scenario(emulated, axes):
     u = jax.random.normal(jax.random.PRNGKey(1), e.u.shape, jnp.float32)
     want = step(e.model, u, e.mat, e.dt, task.grid.h, 2, task.borders, axes)
     got = _run_emulated(emulated, u, e.mat, e.dt, task.grid.h, task.borders,
-                        axes, emulated.gcm_pick_xchunk(*task.grid.shape))
+                        axes, emulated.gcm_pick_xchunk(*task.grid.shape,
+                                                       H100_SMS))
     assert _rel_err(got, want) <= TOL
 
 
-@pytest.mark.parametrize("shape,expect", [
-    ((512, 512, 256), 64),       # 774 tiles already fill the card
-    ((128, 128, 64), 8),         # 66 tiles: short chunks, more blocks
-    ((7, 9, 35), 8),
-    ((4096, 6, 30), 8),          # one tile: as many chunks as allowed
-    ((4096, 600, 300), 64),
+@pytest.mark.parametrize("shape,sms,expect", [
+    ((512, 512, 256), 132, 64),  # 774 tiles already fill the card
+    ((128, 128, 64), 132, 8),    # 66 tiles: short chunks, more blocks
+    ((192, 192, 96), 132, 22),   # 128 tiles: 9 chunks of 22 planes
+    ((192, 192, 96), 16, 64),    # a small card: the tiles suffice
+    ((7, 9, 35), 132, 8),
+    ((4096, 6, 30), 132, 8),     # one tile: as many chunks as allowed
+    ((4096, 600, 300), 132, 64),
 ])
-def test_pick_xchunk(emulated, shape, expect):
-    assert emulated.gcm_pick_xchunk(*shape) == expect
+def test_pick_xchunk(emulated, shape, sms, expect):
+    assert emulated.gcm_pick_xchunk(*shape, sms) == expect
 
 
 # ------------------------------------------------------- choice of path
@@ -167,7 +184,7 @@ def _elastic_args(**over):
               order=2, dtype=jnp.float32,
               borders={(2, 0): BorderSpec("free"),
                        (0, 1): BorderSpec("absorbing")},
-              platform="gpu", mesh=None, perm=None)
+              device=H100, mesh=None, perm=None)
     kw.update(over)
     return kw
 
@@ -184,7 +201,10 @@ def _ortho_mat():
 
 @pytest.mark.parametrize("over,expect", [
     ({}, True),
-    ({"platform": "cpu"}, False),
+    ({"device": jax.devices("cpu")[0]}, False),
+    ({"device": OTHER_GPUS[0]}, False),
+    ({"device": OTHER_GPUS[1]}, False),
+    ({"device": OTHER_GPUS[2]}, False),
     ({"mesh": object()}, False),
     ({"perm": (1, 0, 2)}, False),
     ({"model": get_model("elastic2d")}, False),
@@ -195,7 +215,7 @@ def _ortho_mat():
     ({"borders": {(a, s): BorderSpec(k) for a, s, k in
                   [(0, 0, "fixed_force"), (1, 1, "fixed_velocity")]}}, True),
     ({"borders": {}}, True),
-], ids=["base", "cpu", "mesh", "perm", "2d", "acoustic", "order1",
+], ids=["base", "cpu", "sm80", "sm89", "sm100", "mesh", "perm", "2d", "acoustic", "order1",
         "order3", "f64", "fixed", "no-borders"])
 def test_eligible(over, expect):
     assert hs.eligible(**_elastic_args(**over)) is expect
@@ -208,11 +228,37 @@ def test_eligible_rejects_orthotropic():
 def test_engine_takes_kernel_on_gpu_only(monkeypatch):
     task = get_scenario("elastic3d_layered", n=8, nsteps=2)
     assert Engine(task).kernel == "jnp"                  # CPU here
-    monkeypatch.setattr(eng_mod, "compute_platform",
-                        lambda mesh=None: "gpu")
+    monkeypatch.setattr(eng_mod, "compute_device", lambda mesh=None: H100)
     assert Engine(task).kernel == "hopper"
     assert Engine(dataclasses.replace(task, kernel="jnp")).kernel == "jnp"
     assert Engine(task, dtype=jnp.float64).kernel == "jnp"
+
+
+@pytest.mark.parametrize("device", OTHER_GPUS,
+                         ids=[d.compute_capability for d in OTHER_GPUS])
+def test_engine_takes_jnp_on_other_gpus(monkeypatch, device):
+    """The library holds sm_90a code only: no other GPU can launch it."""
+    monkeypatch.setattr(eng_mod, "compute_device", lambda mesh=None: device)
+    task = get_scenario("elastic3d_layered", n=8, nsteps=2)
+    assert Engine(task).kernel == "jnp"
+
+
+@pytest.mark.parametrize("chosen,devices,ok", [
+    ("hopper", [H100], True),
+    ("jnp", [H100], False),              # a regression in the choice
+    ("jnp", OTHER_GPUS[:1], True),
+    ("hopper", [H100] + OTHER_GPUS[:1], False),
+], ids=["hopper-on-h100", "jnp-on-h100", "jnp-on-a100", "hopper-mixed"])
+def test_smoke_demands_kernel_on_hopper(chosen, devices, ok):
+    """chip_smoke.py fails when the engine's choice does not follow the
+    devices, instead of skipping the kernel's parity."""
+    import chip_smoke
+
+    if ok:
+        chip_smoke.expect_kernel("main path", chosen, devices)
+    else:
+        with pytest.raises(AssertionError, match="expected"):
+            chip_smoke.expect_kernel("main path", chosen, devices)
 
 
 def test_run_result_reports_path():
@@ -281,6 +327,16 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not os.path.exists(hs.library_path())
 
 
+@pytest.mark.parametrize("nvcc", ["/nonexistent/cuda/bin/nvcc", __file__],
+                         ids=["missing", "not-executable"])
+def test_build_without_nvcc_names_jnp_path(tmp_path, monkeypatch, nvcc):
+    monkeypatch.setattr(hs, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(hs, "nvcc_path", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="kernel='jnp'"):
+        hs.build()
+    assert not os.path.exists(hs.BUILD_DIR)
+
+
 def test_hopper_step_off_gpu_raises():
     shape = (4, 4, 4)
     mat = MaterialFields.uniform(
@@ -293,10 +349,19 @@ def test_hopper_step_off_gpu_raises():
 
 # ------------------------------------------------------- on the card
 
+@pytest.fixture
+def hopper(gpu):
+    """The first JAX device when it is a Hopper GPU; skips otherwise."""
+    if not hs.is_hopper(gpu):
+        pytest.skip(f"the kernel is built for sm_90; {gpu.device_kind} "
+                    f"is compute capability {gpu.compute_capability}")
+    return gpu
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("axes", AXES)
 @pytest.mark.parametrize("kind", KINDS)
-def test_kernel_matches_jnp_on_gpu(gpu, kind, axes):
+def test_kernel_matches_jnp_on_gpu(hopper, kind, axes):
     rng = np.random.default_rng(0)
     shape = (40, 50, 70)
     mat = _materials(shape, rng)
@@ -310,7 +375,7 @@ def test_kernel_matches_jnp_on_gpu(gpu, kind, axes):
 
 
 @pytest.mark.gpu
-def test_engine_auto_matches_jnp_on_gpu(gpu):
+def test_engine_auto_matches_jnp_on_gpu(hopper):
     """Free surface, source and detectors: 20 steps, both axis orders."""
     task = get_scenario("elastic3d_explosion", n=64, nsteps=20)
     auto = Engine(task)
